@@ -4,24 +4,35 @@
     python3 chip_smoke.py
 
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
-kernels from ``tts_max_tpu_torch/csrc`` with nvcc, holds each against its
-plain PyTorch version on the card, checks the port's GPU path against its
-CPU path on a small model, then drives the main path — text to waveform
-through ``LocalTtsModel.synthesize_speech`` at the full width of
-Llama-3.2-1B and the full Vocos decoder, random weights from a seed — and
-checks with launch counters that every prefill and decode step went
-through the kernels. The next-to-last line is a JSON summary of the kernels
-and the last line ``{"ok": true, "device": {...}}``. Any failed check
-raises, so the run ends with a nonzero exit and no result line. Without a
-CUDA card it exits 1 at once. It imports nothing of JAX.
+kernels from ``tts_max_tpu_torch/csrc`` with nvcc (one process per source,
+in parallel) and holds each against its plain PyTorch version on the card:
+kernel A (prefill), kernel B (contiguous decode) and the paged decode
+kernel behind its three entry points (D, E, F) and D's stacked form. It
+checks the port's GPU path against its CPU path on a small model, through
+``generate`` and through the paged engine under each paged entry point.
+Then it drives the main paths at the full width of Llama-3.2-1B and the
+full Vocos decoder, random weights from seeds: text to waveform through
+``LocalTtsModel.synthesize_speech``, and the serving engines
+(``inference/engine.py``: paged with prefix caching, paged int8 KV,
+contiguous, paged under the ``grid`` entry point), vocoding every
+completion. Launch counters, set to 0 before each path and read after it,
+must equal what that path's requests and the engines' own counts imply.
+The next-to-last lines are a JSON summary of the kernels and the card's
+name and power limit; the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the run ends with a nonzero exit and no result
+line. Without a CUDA card it exits 1 at once. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import os
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -183,6 +194,11 @@ def _decode_inputs(gen, b, t, d, lengths, quant, nan_tail):
 def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
     from tts_max_tpu_torch.ops import attention
     from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
+    from tts_max_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_dense,
+        paged_decode_attention_dma,
+    )
 
     log("kernel B: flash_decode_attention vs ops.attention.decode_attention "
         "(plain); library = F.scaled_dot_product_attention with a length mask "
@@ -198,6 +214,8 @@ def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
     for d in (64, 128):  # 128: Llama-3.1-8B's head_dim
         for quant in (False, True):
             cases.append((8, 2048, d, ragged, quant, True))
+    # the contiguous engine's shape (e3: 8 slots, max_len 2048, mid-decode)
+    cases.append((8, 2048, 64, [431, 431, 431, 431, 496, 496, 1351, 1351], False, False))
     cases.append((1, main_t, 64, [main_len], False, False))  # the main path's shape
     worst, main = 0.0, None
     for (b, t, d, lens, quant, nan_tail) in cases:
@@ -225,6 +243,114 @@ def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
         main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                     bound_by=by)
     return dict(max_abs_err=worst, **main)
+
+
+# --- the paged kernel (D, E, F) ---------------------------------------------------
+
+PAGED_MAIN_LENS = [300, 1900, 777, 1024, 1358, 501, 1650, 1100]
+
+
+def paged_bound_ms(q, kq, table, lengths, quant: bool) -> tuple[float, str]:
+    """Least time for paged decode attention: bytes of q, the live pages of
+    K and V (and their scales), the table entries of those pages, the
+    lengths and the output, against 4 * Hq * D FLOPs per live row."""
+    b, hq, d = q.shape
+    bs, hkv = kq.shape[-3], kq.shape[-2]
+    pages = int(((lengths + bs - 1) // bs).sum())
+    row_bytes = hkv * d * kq.element_size() + (4 * hkv if quant else 0)
+    nbytes = (2 * q.numel() * q.element_size() + 2 * pages * bs * row_bytes
+              + 4 * pages + 4 * b)
+    flops = 4.0 * int(lengths.sum()) * hq * d
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _paged_inputs(gen, b, d, lens, quant, layers=1, bs=64, p=32, n=257):
+    """q and K/V pools of ``layers`` layers [L, N, bs, 8, d] in bf16 (or
+    int8 with scales), sequences' pages shuffled through the pool (block 0,
+    the sink, owned by none), NaN in every row no sequence reads: the sink,
+    unowned pages, and rows past each length."""
+    from tts_max_tpu_torch.models.llama import _quantize_kv
+
+    q = torch.randn(b, 32, d, generator=gen, device="cuda").to(torch.bfloat16)
+    kv = [torch.randn(layers, n, bs, 8, d, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(2)]
+    perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(b * d))[:b * p] + 1
+    table = perm.view(b, p).to(device="cuda", dtype=torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = torch.zeros(n, bs, dtype=torch.bool, device="cuda")
+    rows = torch.arange(p * bs, device="cuda")
+    for i in range(b):
+        ok = rows < lengths[i]
+        live[table[i].repeat_interleave(bs)[ok], (rows % bs)[ok]] = True
+    if quant:
+        kv = [_quantize_kv(x) for x in kv]
+    for c in kv:
+        (c["scale"] if quant else c)[:, ~live] = float("nan")
+    return q, kv[0], kv[1], table, lengths
+
+
+def _layer(c, i):
+    return {"q": c["q"][i], "scale": c["scale"][i]} if isinstance(c, dict) else c[i]
+
+
+def check_paged(timer: Timer) -> dict:
+    """Each entry point (and D's stacked form) against the plain version on
+    every case; per entry point, its times at the main shape (B = 8, bf16)
+    and its worst error over all cases."""
+    from tts_max_tpu_torch.ops import paged_attention as pa
+
+    log("paged kernel (csrc/paged_decode.cu) behind D, E, F vs "
+        "ops.paged_attention.paged_decode_attention_xla (plain); library = "
+        "F.scaled_dot_product_attention with a length mask on the same rows already "
+        "gathered contiguous (gather excluded; bf16 only)")
+    entries = {"D": pa.paged_decode_attention_dense, "E": pa.paged_decode_attention_dma,
+               "F": pa.paged_decode_attention}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [("main", 8, 64, PAGED_MAIN_LENS, False), ("main int8", 8, 64, PAGED_MAIN_LENS, True),
+             ("D=128", 8, 128, PAGED_MAIN_LENS, False), ("D=128 int8", 8, 128, PAGED_MAIN_LENS, True),
+             ("B=1", 1, 64, [1358], False)]
+    worst = {k: 0.0 for k in entries}
+    main = {}
+    for (label, b, d, lens, quant) in cases:
+        q, kp, vp, table, lengths = _paged_inputs(gen, b, d, lens, quant, layers=2)
+        k0, v0 = _layer(kp, 1), _layer(vp, 1)
+        ref = pa.paged_decode_attention_xla(q, k0, v0, table, lengths)
+        plain_ms = timer.ms(lambda: pa.paged_decode_attention_xla(q, k0, v0, table, lengths),
+                            iters=5)
+        lib_ms = None
+        if not quant:
+            idx = table.long()
+            kc = k0[idx].reshape(b, -1, 8, d).transpose(1, 2)
+            vc = v0[idx].reshape(b, -1, 8, d).transpose(1, 2)
+            mask = (torch.arange(kc.shape[2], device="cuda")[None, :] < lengths[:, None])
+            mask = mask[:, None, None, :]
+            qs = q[:, :, None, :]
+            # the masked rows hold NaN, which SDPA's softmax would spread
+            kc, vc = kc.nan_to_num(), vc.nan_to_num()
+            lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=mask, enable_gqa=True))
+        bound, by = paged_bound_ms(q, kp["q"] if quant else kp, table, lengths, quant)
+        for name, fn in entries.items():
+            out = fn(q, k0, v0, table, lengths)
+            err, tol = check_close(out, ref, f"paged {name} {label}")
+            worst[name] = max(worst[name], err)
+            ms = timer.ms(lambda: fn(q, k0, v0, table, lengths))
+            lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+            log(f"  {name} {label:11s} B={b} D={d:3d} {'int8' if quant else 'bf16'} "
+                f"max_abs_err={err:.3e} ({tol})  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib} bound_ms={bound:.5f} ({by})")
+            if label == "main":
+                main[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  bound_ms=bound, bound_by=by)
+        for layer in (0, 1):
+            ref_l = pa.paged_decode_attention_xla(q, _layer(kp, layer), _layer(vp, layer),
+                                                  table, lengths)
+            out = pa.paged_decode_attention_dense(q, kp, vp, table, lengths, layer=layer)
+            err, tol = check_close(out, ref_l, f"paged D stacked layer={layer} {label}")
+            worst["D"] = max(worst["D"], err)
+        log(f"  D stacked form (layer=0, 1 of [2, 257, 64, 8, {d}]) {label}: within tolerance")
+    return {k: dict(max_abs_err=worst[k], **main[k]) for k in entries}
 
 
 # --- the GPU path against the CPU path on a small model -----------------------
@@ -283,6 +409,54 @@ def check_small_model(tok, sv) -> None:
     log(f"small model fp32, GPU kernels vs CPU plain: prefill + 7 decode steps "
         f"max logit err {worst:.3e} (tol 1e-3); tiny codec wav max err "
         f"{werr:.3e} (tol 1e-3)")
+
+
+def check_small_engine(tok, sv) -> None:
+    """The paged engine on the card and on the CPU, small fp32 model
+    (head_dim 64), greedy, prefix cache on: token ids identical under each
+    of the dense, dma and grid entry points, and the same prefix hits."""
+    import os
+
+    from tts_max_tpu_torch import convert
+    from tts_max_tpu_torch.inference.engine import PagedInferenceEngine
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+
+    cfg = llama.LlamaConfig(vocab_size=len(tok), dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, head_dim=64, ffn_dim=512, dtype=torch.float32)
+    cpu = llama.init_params(cfg, seed=5, device="cpu")
+    gpu = convert.llama_from_numpy(_numpy_tree(cpu), cfg, device="cuda")
+    shared = "a shared voice prompt, long enough to fill two blocks of the pool: " * 2
+    texts = [shared + "one", "another prompt entirely", shared + "two, longer",
+             shared + "three", "and a fifth"]
+    prompts = [np.asarray(tok.encode(t, add_special_tokens=True), np.int32) for t in texts]
+
+    def run(params, device):
+        eng = PagedInferenceEngine(params, cfg, max_batch=2, max_len=512, block_size=64,
+                                   sp=SamplingParams(temperature=0.0), vocab_window=sv.generation_window(),
+                                   enable_prefix_cache=True, steps_per_dispatch=4,
+                                   device=device)
+        done = eng.generate_all(prompts, max_new_tokens=16, eos_id=-1)
+        return [c.tokens.tolist() for c in done], eng.prefix_cache_hits
+
+    want, hits = run(cpu, "cpu")
+    if hits == 0:
+        raise AssertionError("small engine: no prefix-cache hit")
+    before = os.environ.get("TTS_MAX_PAGED_ATTN")
+    try:
+        for variant in ("dense", "dma", "grid"):
+            os.environ["TTS_MAX_PAGED_ATTN"] = variant
+            got, ghits = run(gpu, "cuda")
+            if got != want or ghits != hits:
+                raise AssertionError(f"small engine {variant}: GPU ids {got} (hits {ghits}) "
+                                     f"!= CPU ids {want} (hits {hits})")
+    finally:
+        if before is None:
+            os.environ.pop("TTS_MAX_PAGED_ATTN", None)
+        else:
+            os.environ["TTS_MAX_PAGED_ATTN"] = before
+    log(f"small paged engine fp32, GPU (dense, dma, grid) vs CPU plain: greedy ids "
+        f"identical over {len(prompts)} requests x 16 tokens, prefix hits {hits} on both")
 
 
 def _numpy_tree(t):
@@ -362,7 +536,9 @@ def synthesize(model, settings, request):
                                    enable_instruction=instruct)
 
 
-def run_main_path(tok, sv, counters) -> None:
+def run_main_path(tok, sv, counters):
+    """Three synthesis requests and an int8-KV generate; returns the model,
+    its parts and the launch counts of this path."""
     from tts_max_tpu_torch.data import normalization
     from tts_max_tpu_torch.inference.generate import generate
     from tts_max_tpu_torch.inference.synthesize import InferenceSettings
@@ -413,12 +589,215 @@ def run_main_path(tok, sv, counters) -> None:
     log(f"  generate quantized_kv=True: 64 steps, "
         f"{1e3 * res.decode_time / res.steps:.3f} ms/step")
 
-    want = {"flash_attention": cfg.n_layers * prefills,
-            "flash_decode_attention": cfg.n_layers * steps}
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=cfg.n_layers * prefills,
+                flash_decode_attention=cfg.n_layers * steps)
     got = {c.__name__: c.launches for c in counters}
-    log(f"launch counts over the main path: {got} (expected {want})")
+    log(f"launch counts over the synthesis path: {got} (expected {want})")
     if got != want:
         raise AssertionError(f"launch counts {got} != expected {want}")
+    return model, params, cfg, encoder, got
+
+
+# --- the serving engines at full width -----------------------------------------
+
+ENGINE_TEXTS = [
+    TEXT,
+    "Please leave your message after the tone, and we will call you back.",
+    "Tomorrow will be sunny in the morning, with light rain by the evening.",
+    "Turn left at the second light, then keep going for about a mile.",
+]
+DESCRIPTIONS = ["a calm narrator with a low voice", "a bright young voice, speaking quickly",
+                "an older man with a warm, slow voice", "a clear newsreader voice"]
+
+
+def engine_prompt(tok, normalizer, encoder, kind: str, i: int):
+    """(prompt ids, prompt codes): a voice description with line ``i``, or
+    take ``i`` of ``TEXT`` on the 250- or 1100-code voice prompt (the takes of
+    one voice share their whole prompt)."""
+    from tts_max_tpu_torch.core import prompting
+
+    if kind == "desc":
+        transcript, desc, instruct, codes = "", DESCRIPTIONS[i], False, []
+        text = ENGINE_TEXTS[i]
+    else:
+        transcript = {"p250": REQUESTS[1][2], "p1100": REQUESTS[2][2]}[kind]
+        desc, instruct, codes, text = "", True, list(encoder.codes[kind]), TEXT
+    prompt = prompting.compile_inference_prompt(transcript, normalizer.normalize(text),
+                                                codes, desc, instruct)
+    return (np.asarray(tok.encode(prompt, add_special_tokens=True), np.int32),
+            np.asarray(codes, np.int64))
+
+
+def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
+                 cancel: int | None = None) -> dict:
+    """Warm ``eng`` up, set the counters to 0, submit ``reqs`` (dicts: ids,
+    codes, budget, seed, optional sampling and min_tokens) at once, drive it
+    with ``run_iter`` (cancelling request ``cancel`` after the first poll)
+    with every host sync torch can see flagged, read the counters, check
+    them against the engine's own counts, that the run made no host sync
+    besides each dispatch's blob wait (which the debug mode does not flag),
+    and every completion, and vocode each. Returns the launch counts."""
+    lo, size = sv.generation_window()
+    buckets = tuple(sorted({-(-len(r["ids"]) // 64) * 64 for r in reqs}))
+    eng.warmup(prompt_buckets=buckets)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(r["ids"], r["budget"], sv.speech_end_id, sampling_seed=r["seed"],
+                       sampling=r.get("sampling"), min_tokens=r.get("min_tokens", 0))
+            for r in reqs]
+    done, t_first, cancelled = {}, None, None
+    syncs = []  # the Python stack of every sync the debug mode flags
+
+    def on_warning(message, *args, **kw):
+        if "synchroniz" in str(message):
+            syncs.append([f for f in traceback.extract_stack()[:-1]
+                          if not f.filename.endswith("warnings.py")])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for batch in eng.run_iter():
+                if t_first is None:
+                    t_first = time.perf_counter()
+                    if cancel is not None:
+                        cancelled = rids[cancel]
+                        if eng.cancel(cancelled) is not True:
+                            raise AssertionError(f"{label}: cancel returned False")
+                done.update((c.request_id, c) for c in batch)
+                blocks = getattr(eng, "_slot_blocks", [])
+                if any(0 in row for row in blocks):
+                    raise AssertionError(f"{label}: the sink block was allocated")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    got = {c.__name__: c.launches for c in counters}
+
+    stats = eng.stats()
+    dispatches = sum(stats["dispatches_per_stage"].values())
+    steps = dispatches * eng.steps_per_dispatch
+    n_layers = eng.cfg.n_layers
+    want = {c.__name__: 0 for c in counters}
+    want["flash_attention"] = n_layers * eng._prefill_groups
+    want[decode_kernel] = n_layers * steps
+    log(f"  {label}: launch counts {got} (expected {want}: {eng._prefill_groups} group "
+        f"prefills, {eng._suffix_admissions} suffix admissions, {dispatches} dispatches "
+        f"x K={eng.steps_per_dispatch})")
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got} != expected {want}")
+    # the first switch into "warn" in a process flags itself; it is not the engine's
+    syncs = [stack for stack in syncs if stack[-1].name != "set_sync_debug_mode"]
+    where = collections.Counter(
+        " < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                   for f in reversed(stack[-4:])) for stack in syncs)
+    log(f"  {label}: host syncs flagged by torch.cuda.set_sync_debug_mode inside the run: "
+        f"{len(syncs)}; one blob event wait per dispatch ({dispatches})")
+    if syncs:
+        raise AssertionError(f"{label}: host syncs besides the blob waits: {dict(where)}")
+
+    gen_tokens, audio_s, ttft = 0, 0.0, []
+    t_voc = time.perf_counter()
+    for r, rid in zip(reqs, rids):
+        if rid == cancelled:
+            if rid in done:
+                raise AssertionError(f"{label}: the cancelled request completed")
+            continue
+        c = done.get(rid)
+        if c is None or c.finish_reason not in ("eos", "length"):
+            raise AssertionError(f"{label}: request {rid} did not complete: {c}")
+        toks = np.asarray(c.tokens)
+        if not ((toks >= lo) & (toks < lo + size)).all():
+            raise AssertionError(f"{label}: request {rid} left the window: {toks}")
+        gen = sv.codes_from_tokens(toks)
+        wav = decoder.decode(np.concatenate([r["codes"], gen]))
+        if not (wav.ndim == 2 and wav.shape[1] % 320 == 0 and np.isfinite(wav).all()):
+            raise AssertionError(f"{label}: request {rid} bad wav {wav.shape}")
+        gen_tokens += len(toks)
+        audio_s += len(gen) / 50
+        ttft.append(c.first_token_time - t0)
+    voc_s = time.perf_counter() - t_voc
+    wall = t_end - t0
+    hits = (f", prefix hits {stats['prefix_cache_hits']} misses "
+            f"{stats['prefix_cache_misses']}" if "prefix_cache_hits" in stats else "")
+    log(f"  {label}: wall {wall:.3f} s, {gen_tokens} tokens, {gen_tokens / wall:.1f} tok/s, "
+        f"{1e3 * wall / steps:.2f} ms per lockstep step over the run and "
+        f"{1e3 * (t_end - t_first) / max(steps - eng.steps_per_dispatch, 1):.2f} after the "
+        f"first poll ({steps} steps), {dispatches} dispatches, {eng._prefill_groups} "
+        f"prefill groups, TTFT p50 {1e3 * np.percentile(ttft, 50):.1f} ms p95 "
+        f"{1e3 * np.percentile(ttft, 95):.1f} ms (host clock){hits}; {audio_s:.2f} s of "
+        f"audio, {wall / audio_s:.4f} s of wall per s of audio; vocoded "
+        f"{len(ttft)} wavs in {voc_s:.2f} s")
+    return got
+
+
+def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
+    """e1-e4 at full width; returns the launch counts summed over them."""
+    from tts_max_tpu_torch.data import normalization
+    from tts_max_tpu_torch.inference.engine import InferenceEngine, PagedInferenceEngine
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+
+    normalizer = normalization.create()
+    prompts = {(kind, i): engine_prompt(tok, normalizer, encoder, kind, i)
+               for kind in ("desc", "p250", "p1100") for i in range(4)}
+
+    def reqs(order, budgets):
+        return [dict(ids=prompts[key][0], codes=prompts[key][1], budget=n, seed=100 + j)
+                for j, (key, n) in enumerate(zip(order, budgets))]
+
+    window = sv.generation_window()
+    common = dict(max_batch=8, max_len=2048, vocab_window=window, steps_per_dispatch=16,
+                  device="cuda")
+    totals: dict = {}
+
+    def add(got):
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    log("serving engines: Llama-3.2-1B + Vocos, max_batch 8, max_len 2048, K=16, "
+        f"window {window}, default SamplingParams unless noted")
+    # e1: paged, bf16, prefix cache, the default entry point (D); the takes
+    # 1-3 of each voice are admitted after the first group, as suffix hits
+    order = [("p250", 0), ("p1100", 0), ("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3),
+             ("p250", 1), ("p1100", 1), ("p250", 2), ("p1100", 2), ("p250", 3), ("p1100", 3)]
+    e1 = reqs(order, [256, 224, 192, 208, 240, 256, 192, 232, 200, 256, 216, 248])
+    e1[2]["sampling"] = SamplingParams(temperature=0.0)
+    e1[3]["sampling"] = SamplingParams(top_p=0.9)
+    e1[4]["min_tokens"] = 32
+    eng = PagedInferenceEngine(params, cfg, block_size=64, enable_prefix_cache=True, **common)
+    os.environ.pop("TTS_MAX_PAGED_ATTN", None)
+    add(drive_engine("e1 paged bf16 dense, prefix cache, 12 requests", eng, e1, decoder, sv,
+                     counters, "paged_decode_attention_dense", cancel=5))
+    if eng.prefix_cache_hits == 0:
+        raise AssertionError("e1: no prefix-cache hit")
+    del eng
+    # e2: paged, int8 KV, the dma entry point (E)
+    order = [("desc", 0), ("p250", 0), ("desc", 1), ("p1100", 0), ("desc", 2), ("p250", 1)]
+    os.environ["TTS_MAX_PAGED_ATTN"] = "dma"
+    try:
+        eng = PagedInferenceEngine(params, cfg, block_size=64, quantized_kv=True, **common)
+        add(drive_engine("e2 paged int8 dma, 6 requests", eng, reqs(order, [128] * 6),
+                         decoder, sv, counters, "paged_decode_attention_dma"))
+        del eng
+        # e4: paged, bf16, the grid entry point (F)
+        os.environ["TTS_MAX_PAGED_ATTN"] = "grid"
+        order = [("desc", 1), ("p250", 2), ("desc", 3), ("p1100", 2)]
+        eng = PagedInferenceEngine(params, cfg, block_size=64, **common)
+        add(drive_engine("e4 paged bf16 grid, 4 requests", eng, reqs(order, [64] * 4),
+                         decoder, sv, counters, "paged_decode_attention"))
+        del eng
+    finally:
+        os.environ.pop("TTS_MAX_PAGED_ATTN", None)
+    # e3: contiguous (the CLI default engine), kernel B at B = 8
+    order = [("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3), ("p250", 0), ("p250", 1),
+             ("p1100", 0), ("p1100", 1)]
+    eng = InferenceEngine(params, cfg, **common)
+    add(drive_engine("e3 contiguous bf16, 8 requests", eng, reqs(order, [256] * 8), decoder,
+                     sv, counters, "flash_decode_attention"))
+    return totals
 
 
 def main() -> int:
@@ -430,6 +809,11 @@ def main() -> int:
     from tts_max_tpu_torch.ops import cuda_build
     from tts_max_tpu_torch.ops.flash_attention import flash_attention
     from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
+    from tts_max_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_dense,
+        paged_decode_attention_dma,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -464,19 +848,31 @@ def main() -> int:
                                (2048, 64, torch.bfloat16), (1024, 128, torch.bfloat16),
                                (1024, 64, torch.float32)], main_s=bucket_c)
     b = check_kernel_b(timer, main_t=bucket_c + 256, main_len=s_c + 128)
+    paged = check_paged(timer)
     del timer
     check_small_model(tok, sv)
-    run_main_path(tok, sv, [flash_attention, flash_decode_attention])
+    check_small_engine(tok, sv)
+    counters = [flash_attention, flash_decode_attention, paged_decode_attention_dense,
+                paged_decode_attention_dma, paged_decode_attention]
+    model, params, cfg, encoder, launches = run_main_path(tok, sv, counters)
+    for name, n in run_engines(tok, sv, params, cfg, encoder, model._audio_decoder,
+                               counters).items():
+        launches[name] += n
+    log(f"launch counts summed over the main paths: {launches}")
+
+    def row(fn, source, replaces, numbers):
+        return dict(name=fn.__name__, route="cuda", source=f"tts_max_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches[fn.__name__], **numbers)
 
     kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="tts_max_tpu_torch/csrc/flash_attention.cu",
-             replaces="tts_max_tpu/ops/pallas_attention.py:79",
-             launches=flash_attention.launches, **a),
-        dict(name="flash_decode_attention", route="cuda",
-             source="tts_max_tpu_torch/csrc/flash_decode.cu",
-             replaces="tts_max_tpu/ops/pallas_decode.py:363",
-             launches=flash_decode_attention.launches, **b),
+        row(flash_attention, "flash_attention.cu", "tts_max_tpu/ops/pallas_attention.py:79", a),
+        row(flash_decode_attention, "flash_decode.cu", "tts_max_tpu/ops/pallas_decode.py:363", b),
+        row(paged_decode_attention_dense, "paged_decode.cu",
+            "tts_max_tpu/ops/paged_attention.py:536", paged["D"]),
+        row(paged_decode_attention_dma, "paged_decode.cu",
+            "tts_max_tpu/ops/paged_attention.py:246", paged["E"]),
+        row(paged_decode_attention, "paged_decode.cu",
+            "tts_max_tpu/ops/paged_attention.py:663", paged["F"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

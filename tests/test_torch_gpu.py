@@ -55,3 +55,46 @@ def test_flash_decode_kernel_matches_plain(d, quant):
     ref = decode_attention(q, k, v, lengths)
     rtol, atol = KERNEL_TOL[torch.bfloat16]
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_kernel_matches_plain(quant):
+    """The main case: B = 8, Hq 32, Hkv 8, D 64, bs 64, table width 32,
+    ragged lengths over a shuffled pool of 257 blocks, NaN in the sink, in
+    unowned pages and past every length; each entry point and the stacked
+    form within KERNEL_TOL."""
+    _cuda()
+    from tts_max_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, p, bs, n = 8, 32, 64, 257
+    lens = torch.tensor([300, 1900, 777, 1024, 1358, 501, 1650, 1100],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(b, 32, 64, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, n, bs, 8, 64, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(1))[:b * p] + 1
+    table = perm.view(b, p).to(device="cuda", dtype=torch.int32)
+    live = torch.zeros(n, bs, dtype=torch.bool, device="cuda")
+    rows = torch.arange(p * bs, device="cuda")
+    for i in range(b):
+        ok = rows < lens[i]
+        live[table[i].repeat_interleave(bs)[ok], (rows % bs)[ok]] = True
+    if quant:
+        k, v = _quantize_kv(k), _quantize_kv(v)
+    for c in (k, v):
+        (c["scale"] if quant else c)[:, ~live] = float("nan")
+
+    def layer(c, i):
+        return {"q": c["q"][i], "scale": c["scale"][i]} if quant else c[i]
+
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    for i in range(2):
+        ref = pa.paged_decode_attention_xla(q, layer(k, i), layer(v, i), table, lens)
+        outs = [fn(q, layer(k, i), layer(v, i), table, lens)
+                for fn in (pa.paged_decode_attention_dense, pa.paged_decode_attention_dma,
+                           pa.paged_decode_attention)]
+        outs.append(pa.paged_decode_attention_dense(q, k, v, table, lens, layer=i))
+        for out in outs:
+            torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)

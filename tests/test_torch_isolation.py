@@ -1,11 +1,15 @@
-"""The port stands alone: it imports no JAX and nothing of ``tts_max_tpu``."""
+"""The port stands alone: it imports no JAX and nothing of ``tts_max_tpu``;
+nor do the scripts that drive it on the card (``chip_smoke.py``,
+``tools/profile_torch_synthesis.py``)."""
 
 import pathlib
 import re
 import subprocess
 import sys
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "tts_max_tpu_torch"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "tts_max_tpu_torch"
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
 _IMPORT = re.compile(
@@ -32,8 +36,8 @@ def test_import_regex_tells_the_packages_apart():
 
 def test_no_jax_or_reference_package_imports_in_sources():
     offenders = [
-        f"{path.relative_to(PKG.parent)}: {m.group(0).strip()}"
-        for path in sorted(PKG.rglob("*.py"))
+        f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
+        for path in sorted(PKG.rglob("*.py")) + SCRIPTS
         for m in _IMPORT.finditer(path.read_text())
     ]
     assert not offenders, offenders
@@ -41,20 +45,25 @@ def test_no_jax_or_reference_package_imports_in_sources():
 
 def test_every_module_imports_without_jax():
     """In a fresh interpreter where ``import jax`` fails, every module of the
-    port imports, and no ``tts_max_tpu`` module gets loaded."""
+    port and both scripts import, and no ``tts_max_tpu`` module gets
+    loaded."""
     mods = list(_modules())
     assert len(mods) > 20
+    scripts = [str(p) for p in SCRIPTS]
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for path in {scripts!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('script', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'tts_max_tpu'"
         " or m.startswith('tts_max_tpu.') or m == 'jax' and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")

@@ -9,14 +9,19 @@ fp32.
 
 Attention goes through the port's kernels: ``flash_attention`` (kernel A)
 for every prefill, ``flash_decode_attention`` (kernel B) for every decode
-step. ``decode_step`` writes the new token's K/V row into the cache in
-place, then attends over ``lengths + 1`` rows: PyTorch updates a tensor in
-place, so the JAX package's delta-KV machinery, which exists to stop XLA
-copying a loop-carried cache, has no counterpart here.
+step over a contiguous cache, and the paged kernel
+(``ops/paged_attention.py``) for ``decode_step_paged`` over a block pool.
+Both decode steps write the new token's K/V row into the cache in place,
+then attend over ``lengths + 1`` rows: PyTorch updates a tensor in place,
+so the JAX package's delta-KV machinery, which exists to stop XLA copying a
+loop-carried cache, has no counterpart here. The cache functions below that
+write (``scatter_*``, ``decode_window``) also write in place and return the
+cache they were given.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 
 import torch
@@ -25,6 +30,8 @@ import torch.nn.functional as F
 from tts_max_tpu_torch.core.constants import FIXED_VOCAB_SIZE
 from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models.quantization import quantize_tensor
+from tts_max_tpu_torch.ops import paged_attention as pattn
+from tts_max_tpu_torch.ops.attention import window_attention
 from tts_max_tpu_torch.ops.flash_attention import flash_attention
 from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
 from tts_max_tpu_torch.ops.norms import rms_norm
@@ -252,6 +259,86 @@ def cache_max_len(cache) -> int:
     return (cache["k"]["q"] if cache_is_quantized(cache) else cache["k"]).shape[2]
 
 
+def _map(fn, *trees):
+    """fn over the matching tensors of caches (dicts of tensors or of int8
+    ``{"q", "scale"}`` dicts)."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def grow_cache(cache, new_len: int):
+    """Zero-pad the token axis (axis 2 of every tensor) to ``new_len``."""
+    old_len = cache_max_len(cache)
+    if new_len < old_len:
+        raise ValueError(f"cannot shrink cache {old_len} -> {new_len}")
+    if new_len == old_len:
+        return cache
+
+    def leaf(x):
+        out = x.new_zeros((*x.shape[:2], new_len, *x.shape[3:]))
+        out[:, :, :old_len] = x
+        return out
+
+    return _map(leaf, cache)
+
+
+def init_paged_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
+                        dtype=None, *, quantized: bool = False, device="cuda"):
+    """Block-pool KV cache for paged serving: tensors [L, num_blocks,
+    block_size, Hkv, D] (int8 payloads with fp32 scales [L, num_blocks,
+    block_size, Hkv] when ``quantized``); sequences own ordered block-id
+    lists (the engine's block table) instead of max_len reservations."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    if quantized:
+        def entry():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "scale": torch.zeros(shape[:-1], device=dev)}
+
+        return {"k": entry(), "v": entry()}
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def paged_block_size(cache) -> int:
+    return (cache["k"]["q"] if cache_is_quantized(cache) else cache["k"]).shape[2]
+
+
+def gather_blocks_to_cache(pool, block_ids):
+    """Gather ordered pool blocks into a contiguous batch-1 cache
+    [L, 1, len(block_ids) * block_size, ...] (the inverse of
+    ``scatter_prefill_to_blocks``): the shared-prefix context of a
+    prefix-cached admission. ``block_ids``: int tensor on the pool's
+    device."""
+    def leaf(big):
+        g = big[:, block_ids.long()]  # [L, m, bs, ...]
+        return g.reshape(g.shape[0], 1, -1, *g.shape[3:])
+
+    return _map(leaf, pool)
+
+
+def scatter_suffix_to_blocks(pool, small, block_ids, start: int):
+    """Write rows [start, start + len(block_ids) * bs) of a contiguous
+    batch-1 cache (tensors [L, 1, S, ...]) into pool blocks ``block_ids``,
+    in place. ``start`` must be block-aligned."""
+    def leaf(big, little):
+        bs, n = big.shape[2], block_ids.shape[0]
+        lit = little[:, 0, start:start + n * bs]
+        big[:, block_ids.long()] = lit.reshape(lit.shape[0], n, bs,
+                                               *lit.shape[2:]).to(big.dtype)
+
+    _map(leaf, pool, small)
+    return pool
+
+
+def scatter_prefill_to_blocks(pool, small, block_ids):
+    """Write a contiguous batch-1 prefill cache (tensors [L, 1, S, ...])
+    into pool blocks ``block_ids`` ([S // block_size]), in place."""
+    return scatter_suffix_to_blocks(pool, small, block_ids, 0)
+
+
 def _quantize_kv(x: torch.Tensor) -> dict[str, torch.Tensor]:
     """Per-(…, head) symmetric int8 over the feature dim."""
     return quantize_tensor(x, axis=x.ndim - 1)
@@ -299,19 +386,15 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     return _logits(h_last, params, cfg, logits_head), cache
 
 
-def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
-                lengths: torch.Tensor, logits_head=None):
-    """One autoregressive step for tokens [B]; ``lengths`` [B] int32 are the
-    valid cache rows BEFORE this token (also its position). Writes the
-    token's K/V rows at ``lengths`` in place, attends with kernel B over
-    ``lengths + 1`` rows and returns (logits [B, V] or [B, size], cache);
-    the caller increments lengths."""
+def _decode_layers(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
+                   positions: torch.Tensor, rows, attend, max_pos: int, logits_head):
+    """The layer loop of one decode step for tokens [B] at ``positions``
+    [B]: writes each layer's K/V rows at ``rows`` (an index into one
+    layer's cache) in place and takes attention from ``attend(i, q)``."""
     b = tokens.shape[0]
-    cos, sin = rope_table(cfg.head_dim, cache_max_len(cache), cfg.rope_theta,
+    cos, sin = rope_table(cfg.head_dim, max_pos, cfg.rope_theta,
                           cfg.use_llama3_rope_scaling, tokens.device)
-    pos = lengths.long()[:, None]  # [B, 1]: one position per sequence
-    rows = (torch.arange(b, device=tokens.device), lengths.long())
-    attend = lengths + 1
+    pos = positions.long()[:, None]  # [B, 1]: one position per sequence
     h = _embed(params, tokens, cfg)  # [B, D]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -323,9 +406,107 @@ def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
         k = apply_rope(k, cos, sin, pos)[:, 0]
         _write_cache(cache["k"], i, rows, k)
         _write_cache(cache["v"], i, rows, v)
-        o = flash_decode_attention(
-            q, _layer_cache(cache["k"], i), _layer_cache(cache["v"], i), attend
-        )
+        o = attend(i, q)
         h = h + o.reshape(b, cfg.q_dim) @ lp["attn"]["wo"]["kernel"]
+        h = _mlp_block(h, lp, cfg)
+    return _logits(h, params, cfg, logits_head), cache
+
+
+def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
+                lengths: torch.Tensor, logits_head=None):
+    """One autoregressive step for tokens [B]; ``lengths`` [B] int32 are the
+    valid cache rows BEFORE this token (also its position). Writes the
+    token's K/V rows at ``lengths`` in place, attends with kernel B over
+    ``lengths + 1`` rows and returns (logits [B, V] or [B, size], cache);
+    the caller increments lengths."""
+    rows = (torch.arange(tokens.shape[0], device=tokens.device), lengths.long())
+    attend = lengths + 1
+
+    def attn(i, q):
+        return flash_decode_attention(
+            q, _layer_cache(cache["k"], i), _layer_cache(cache["v"], i), attend)
+
+    return _decode_layers(params, cfg, cache, tokens, lengths, rows, attn,
+                          cache_max_len(cache), logits_head)
+
+
+_PAGED_VARIANTS = ("dense", "dense2", "dma", "grid", "xla")
+
+
+def _paged_variant(use_pallas: bool | None = None) -> str:
+    """The paged attention entry point ``decode_step_paged`` runs, chosen
+    as the JAX package chooses it: ``use_pallas=False`` means ``"xla"``
+    (the plain version, for CPU tensors only), else ``TTS_MAX_PAGED_ATTN``
+    names one of ``dense`` (kernel D, the default), ``dense2`` (D's stacked
+    ``layer=`` form), ``dma`` (E), ``grid`` (F) or ``xla``."""
+    variant = os.environ.get("TTS_MAX_PAGED_ATTN", "")
+    if use_pallas is False and variant not in ("", "xla"):
+        variant = "xla"
+    if not variant:
+        variant = "xla" if use_pallas is False else "dense"
+    if variant not in _PAGED_VARIANTS:
+        raise ValueError(f"TTS_MAX_PAGED_ATTN={variant!r}, not one of {_PAGED_VARIANTS}")
+    return variant
+
+
+def decode_step_paged(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
+                      lengths: torch.Tensor, table: torch.Tensor, *,
+                      use_pallas: bool | None = None, logits_head=None):
+    """One autoregressive step against a block-pool cache: writes the new
+    token's K/V row at block ``table[b, lengths[b] // bs]``, offset
+    ``lengths[b] % bs``, in place, then attends through the table over
+    ``lengths + 1`` rows with the entry point ``_paged_variant`` picks. ``table``: [B, P] int32 (unallocated entries must be valid ids,
+    e.g. 0; they are masked by the lengths). Returns (logits, cache)."""
+    variant = _paged_variant(use_pallas)
+    if variant == "xla" and tokens.device.type != "cpu":
+        raise ValueError("the 'xla' paged attention is the plain version and takes "
+                         f"CPU tensors only, not {tokens.device.type} ones")
+    bs = paged_block_size(cache)
+    pos = lengths.long()
+    blk = torch.gather(table, 1, (pos // bs)[:, None])[:, 0].long()
+    rows = (blk, pos % bs)
+    attend = lengths + 1
+    entry = {"dense": pattn.paged_decode_attention_dense,
+             "dma": pattn.paged_decode_attention_dma,
+             "grid": pattn.paged_decode_attention,
+             "xla": pattn.paged_decode_attention_xla}.get(variant)
+
+    def attn(i, q):
+        if variant == "dense2":  # the stacked pools, read at layer i
+            return pattn.paged_decode_attention_dense(
+                q, cache["k"], cache["v"], table, attend, layer=i)
+        return entry(q, _layer_cache(cache["k"], i), _layer_cache(cache["v"], i),
+                     table, attend)
+
+    return _decode_layers(params, cfg, cache, tokens, lengths, rows, attn,
+                          table.shape[1] * bs, logits_head)
+
+
+def decode_window(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
+                  lengths: torch.Tensor, logits_head=None):
+    """Chunked decode: a W-token window in one forward. tokens [B, W] sit at
+    positions lengths .. lengths + W - 1; their K/V rows are written into the
+    contiguous cache in place and each attends the cache up to and
+    including itself (``window_attention``, plain torch: no kernel). Returns
+    (logits [B, W, V] or [B, W, size] fp32, cache)."""
+    b, w = tokens.shape
+    cos, sin = rope_table(cfg.head_dim, cache_max_len(cache), cfg.rope_theta,
+                          cfg.use_llama3_rope_scaling, tokens.device)
+    pos = lengths.long()[:, None] + torch.arange(w, device=tokens.device)[None, :]
+    rows = (torch.arange(b, device=tokens.device)[:, None], pos)
+    h = _embed(params, tokens, cfg)  # [B, W, D]
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
+        q = (x @ lp["attn"]["wq"]["kernel"]).view(b, w, cfg.n_heads, cfg.head_dim)
+        k = (x @ lp["attn"]["wk"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
+        v = (x @ lp["attn"]["wv"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
+        q = apply_rope(q, cos, sin, pos)
+        k = apply_rope(k, cos, sin, pos)
+        _write_cache(cache["k"], i, rows, k)
+        _write_cache(cache["v"], i, rows, v)
+        o = window_attention(q, _layer_cache(cache["k"], i),
+                             _layer_cache(cache["v"], i), lengths).to(h.dtype)
+        h = h + o.reshape(b, w, cfg.q_dim) @ lp["attn"]["wo"]["kernel"]
         h = _mlp_block(h, lp, cfg)
     return _logits(h, params, cfg, logits_head), cache

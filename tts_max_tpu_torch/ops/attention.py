@@ -1,9 +1,10 @@
 """Plain PyTorch attention (counterpart of ``tts_max_tpu/ops/attention.py``).
 
-These are the plain versions of the two CUDA kernels — the CPU path of
-their wrappers and the reference ``chip_smoke.py`` holds the kernels
-against on the card — plus the non-causal attention of the Vocos backbone,
-which the JAX package leaves to XLA and the port leaves to plain ops.
+These are the plain versions of the CUDA kernels — the CPU path of their
+wrappers and the reference ``chip_smoke.py`` holds the kernels against on
+the card — plus two attentions the JAX package leaves to XLA and the port
+leaves to plain ops on every device: the non-causal attention of the Vocos
+backbone and ``window_attention`` (the prefix-cache suffix prefill).
 
 Layouts match the JAX package: [B, S, H, D] for attention, [B, T, Hkv, D]
 for a cache, with an int8 cache as ``{"q": int8 [B, T, Hkv, D],
@@ -103,3 +104,40 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", probs, vf)
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def window_attention(
+    q: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor
+) -> torch.Tensor:
+    """W-token window attention against a padded KV cache (counterpart of
+    the JAX package's ``ops.attention.window_attention``, which XLA
+    computes outside any Pallas kernel; so this is plain torch on every
+    device, not the plain version of a kernel).
+
+    q: [B, W, Hq, D], window position i at absolute position lengths[b] + i,
+    its K/V already written to the cache at that row; caches [B, T, Hkv, D]
+    or int8 dicts; lengths: [B] valid rows BEFORE the window. Query i
+    attends rows <= lengths + i. The arithmetic is the JAX function's:
+    scores in q's dtype then fp32, K scales folded into the scores and V
+    scales into the probabilities, which are rounded to q's dtype before
+    the weighted sum. Returns [B, W, Hq, D] in q's dtype.
+    """
+    k_quant = isinstance(k_cache, dict)
+    v_quant = isinstance(v_cache, dict)
+    kq = k_cache["q"] if k_quant else k_cache
+    vq = v_cache["q"] if v_quant else v_cache
+    b, t, hkv, d = kq.shape
+    w, hq = q.shape[1], q.shape[2]
+    qg = q.reshape(b, w, hkv, hq // hkv, d)
+    logits = torch.einsum("bwgrd,bkgd->bgrwk", qg, kq.to(q.dtype)).float() * d ** -0.5
+    if k_quant:
+        logits = logits * k_cache["scale"].transpose(1, 2)[:, :, None, None, :]
+    pos = torch.arange(t, device=q.device)[None, None, None, None, :]
+    limit = (lengths[:, None] + torch.arange(w, device=q.device)[None, :])
+    logits = torch.where(pos <= limit[:, None, None, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if v_quant:
+        probs = probs * v_cache["scale"].transpose(1, 2)[:, :, None, None, :]
+    probs = probs.to(q.dtype)
+    out = torch.einsum("bgrwk,bkgd->bwgrd", probs, vq.to(q.dtype))
+    return out.reshape(b, w, hq, d)

@@ -54,9 +54,12 @@ def _rope_table(head_dim, max_len, theta, use_llama3_scaling, device):
     if use_llama3_scaling:
         freqs = llama3_scale_freqs(freqs)
     ang = np.outer(np.arange(max_len, dtype=np.float64), freqs)
-    cos = torch.from_numpy(np.cos(ang).astype(np.float32)).to(device)
-    sin = torch.from_numpy(np.sin(ang).astype(np.float32)).to(device)
-    return cos, sin
+    cos = torch.from_numpy(np.cos(ang).astype(np.float32))
+    sin = torch.from_numpy(np.sin(ang).astype(np.float32))
+    if device.type == "cuda":  # through pinned memory: no host sync
+        return (cos.pin_memory().to(device, non_blocking=True),
+                sin.pin_memory().to(device, non_blocking=True))
+    return cos.to(device), sin.to(device)
 
 
 def apply_rope(
