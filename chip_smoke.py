@@ -6,13 +6,17 @@
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from ``tts_max_tpu_torch/csrc`` with nvcc (one process per source,
 in parallel) and holds each against its plain PyTorch version on the card:
-kernel A (prefill), kernel B (contiguous decode) and the paged decode
-kernel behind its three entry points (D, E, F) and D's stacked form. It
-checks the port's GPU path against its CPU path on a small model, through
-``generate`` and through the paged engine under each paged entry point.
-Then it drives the main paths at the full width of Llama-3.2-1B and the
-full Vocos decoder, random weights from seeds: text to waveform through
-``LocalTtsModel.synthesize_speech``, and the serving engines
+kernel A (prefill), kernel B (contiguous decode), the paged decode
+kernel behind its three entry points (D, E, F) and D's stacked form, and
+kernel G (the codec encoder's anti-aliased SnakeBeta) at the six shapes of
+a 22 s prompt's encode and at edge cases. It checks the port's GPU path
+against its CPU path on a small model, through ``generate`` and through
+the paged engine under each paged entry point, and on a small codec
+encoder. Then it drives the main paths at the full width of Llama-3.2-1B,
+the full Vocos decoder and the full codec encoder with wav2vec-BERT 2.0,
+random weights from seeds: text and a 5 s or 22 s prompt wav to waveform
+through ``LocalTtsModel.synthesize_speech`` (the prompt encode split into
+host features, w2v-bert and the acoustic encoder), and the serving engines
 (``inference/engine.py``: paged with prefix caching, paged int8 KV,
 contiguous, paged under the ``grid`` entry point), vocoding every
 completion. Launch counters, set to 0 before each path and read after it,
@@ -26,12 +30,14 @@ line. Without a CUDA card it exits 1 at once. It imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import subprocess
 import sys
 import time
 import traceback
+import types
 import warnings
 
 import numpy as np
@@ -353,6 +359,80 @@ def check_paged(timer: Timer) -> dict:
     return {k: dict(max_abs_err=worst[k], **main[k]) for k in entries}
 
 
+# --- kernel G -------------------------------------------------------------------
+
+# [B, T, C] of the acoustic encoder's activations on a 22 s prompt (352000
+# samples + 320 of hop padding) at EncoderConfig(), and launches per encode
+ENCODER_SHAPES = [("block 1", 352320, 48, 7), ("block 2", 176160, 96, 7),
+                  ("block 3", 88080, 192, 7), ("block 4", 22020, 384, 7),
+                  ("block 5", 5505, 768, 7), ("final", 1101, 1536, 1)]
+ACT1D_FLOPS = 53  # per element: two 6-tap sums (22), two snakes (8), the 12-tap down sum (23)
+SINE_FLOPS = 20  # an estimate for one sinf: range reduction and polynomial
+
+
+def act1d_bound_ms(b, t, c) -> tuple[float, str]:
+    """Least time for kernel G: x read once and y written once (fp32), plus
+    alpha and beta, against ACT1D_FLOPS + 2 sines per element in fp32."""
+    n = b * t * c
+    nbytes = 8 * n + 8 * c
+    flops = n * (ACT1D_FLOPS + 2 * SINE_FLOPS)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_kernel_g(timer: Timer) -> dict:
+    from tts_max_tpu_torch.models.codec import filters
+    from tts_max_tpu_torch.ops.act1d import TB, activation1d_fused, activation1d_kernel
+
+    log("kernel G: activation1d_kernel vs ops.act1d.activation1d_fused (plain, fp32); "
+        "unfused = filters.activation1d(fused=False), cuDNN depthwise conv_transpose1d "
+        "+ snake + depthwise strided conv1d (yardstick: no single PyTorch call "
+        "computes G); random log-scale alpha, beta at 0.3 std")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(b, t, c, scales=(), amp=None):
+        if amp is None:
+            x = torch.randn(b, t, c, generator=gen, device="cuda")
+        else:
+            x = amp * (2 * torch.rand(b, t, c, generator=gen, device="cuda") - 1)
+        for i, sc in enumerate(scales):
+            x[i] *= sc
+        p = {k: 0.3 * torch.randn(c, generator=gen, device="cuda") for k in ("alpha", "beta")}
+        return x, p
+
+    worst = 0.0
+    edge = [(f"B=2 T={t} C=4, scales 30 / 0.01", inputs(2, t, 4, scales=(30.0, 0.01)))
+            for t in (1, 2, 7, TB - 1, TB + 1)]
+    edge += [("B=2 T=5000 C=48, scales 0.01 / 30", inputs(2, 5000, 48, scales=(0.01, 30.0))),
+             ("B=1 T=4096 C=48, |x| up to 50", inputs(1, 4096, 48, amp=50.0)),
+             ("B=1 T=300 C=20 (masked channels)", inputs(1, 300, 20))]
+    for label, (x, p) in edge:
+        err, tol = check_close(activation1d_kernel(x, p), activation1d_fused(x, p),
+                               f"kernel G {label}")
+        worst = max(worst, err)
+        log(f"  edge case {label}: max_abs_err={err:.3e} ({tol})")
+    rows, per_encode = [], dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0)
+    for label, t, c, n in ENCODER_SHAPES:
+        x, p = inputs(1, t, c)
+        err, tol = check_close(activation1d_kernel(x, p), activation1d_fused(x, p),
+                               f"kernel G {label}")
+        worst = max(worst, err)
+        ms = timer.ms(lambda: activation1d_kernel(x, p))
+        plain_ms = timer.ms(lambda: activation1d_fused(x, p), iters=5)
+        unfused_ms = timer.ms(lambda: filters.activation1d(x, p, fused=False), iters=5)
+        bound, by = act1d_bound_ms(1, t, c)
+        for k, v in dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound).items():
+            per_encode[k] += n * v
+        log(f"  {label:7s} [1, {t:6d}, {c:4d}] x{n}: max_abs_err={err:.3e} ({tol})  "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} unfused_ms={unfused_ms:.4f} "
+            f"bound_ms={bound:.5f} ({by}, {8 * t * c / 2 ** 20:.1f} MiB moved)")
+        rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                         bound_by=by))
+    log("  per 22 s encode (36 launches): " + ", ".join(
+        f"{k}={v:.4f}" for k, v in per_encode.items()))
+    return dict(max_abs_err=worst, **rows[0])
+
+
 # --- the GPU path against the CPU path on a small model -----------------------
 
 
@@ -459,6 +539,62 @@ def check_small_engine(tok, sv) -> None:
         f"identical over {len(prompts)} requests x 16 tokens, prefix hits {hits} on both")
 
 
+def _liven(tree, rng, key=None):
+    """A numpy parameter tree with random log-scale SnakeBeta parameters and
+    conv kernels x6, so that signals survive a tiny encoder and its codes
+    vary (26 distinct codes of 26 on the seeded wav)."""
+    if isinstance(tree, dict):
+        return {k: _liven(v, rng, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_liven(v, rng, key) for v in tree]
+    if key in ("alpha", "beta"):
+        return (0.3 * rng.standard_normal(tree.shape)).astype(np.float32)
+    return tree * 6 if key == "kernel" and tree.ndim == 3 else tree
+
+
+def check_small_encoder() -> None:
+    """The tiny codec encoder over a tiny w2v-bert on the real 160 features,
+    fp32, one seeded 0.5 s wav: the card (kernel G) against the CPU (its
+    plain version), codes identical and acoustic features within 1e-5 of
+    their largest magnitude, as tests/test_torch_encoder.py holds them."""
+    from tts_max_tpu_torch import convert
+    from tts_max_tpu_torch.models.codec import api, encoder, w2vbert
+    from tts_max_tpu_torch.ops.act1d import activation1d_kernel
+
+    wcfg = w2vbert.W2VBertConfig(**{**w2vbert.tiny_w2vbert_config().__dict__,
+                                    "feature_dim": 160})
+    ecfg = encoder.EncoderConfig(**{**encoder.tiny_encoder_config().__dict__,
+                                    "semantic_input_dim": wcfg.hidden_size})
+    tree = _liven(_numpy_tree(encoder.init_encoder(ecfg, seed=11, device="cpu")),
+                  np.random.default_rng(12))
+    w2v = _numpy_tree(w2vbert.init_params(wcfg, seed=13, device="cpu"))
+    encs, acoustic = {}, {}
+    wav = prompt_wav(0.5, seed=14)
+    padded = encoder.pad_wav_for_encode(wav[None], ecfg.hop_length)
+    for dev in ("cpu", "cuda"):
+        params = convert.encoder_from_numpy(tree, ecfg, device=dev)
+        semantic = w2vbert.default_semantic_fn(
+            params=convert.w2vbert_from_numpy(w2v, wcfg, device=dev), cfg=wcfg, device=dev)
+        encs[dev] = api.AudioEncoder(params, ecfg, semantic, device=dev)
+        with torch.inference_mode():
+            acoustic[dev] = encoder.acoustic_encoder(
+                torch.from_numpy(padded).to(dev), params["acoustic"], ecfg).cpu()
+    before = activation1d_kernel.launches
+    codes = {dev: e.encode(wav) for dev, e in encs.items()}
+    launches = activation1d_kernel.launches - before
+    err = max_err(acoustic["cuda"], acoustic["cpu"])
+    scale = float(acoustic["cpu"].abs().max())
+    tol = 1e-5 * scale
+    if not (np.array_equal(codes["cuda"], codes["cpu"]) and err <= tol and launches == 36):
+        raise AssertionError(f"small encoder: GPU codes {codes['cuda']} vs CPU "
+                             f"{codes['cpu']}, acoustic err {err} (tol {tol}), "
+                             f"G launches {launches}")
+    log(f"small codec encoder fp32, GPU (kernel G, {launches} launches) vs CPU plain: "
+        f"{codes['cpu'].size} codes identical ({len(np.unique(codes['cpu']))} distinct), "
+        f"acoustic features max err {err:.3e} (tol 1e-5 x max |feature| {scale:.3f} "
+        f"= {tol:.3e})")
+
+
 def _numpy_tree(t):
     if isinstance(t, dict):
         return {k: _numpy_tree(v) for k, v in t.items()}
@@ -470,28 +606,39 @@ def _numpy_tree(t):
 # --- the main path --------------------------------------------------------------
 
 
-class StubEncoder:
-    """Seeded prompt codes per prompt id, in place of the audio encoder
-    (not ported yet)."""
-
-    sample_rate = 16000
-    token_rate = 50
-
-    def __init__(self, lengths: dict[str, int]):
-        rng = np.random.default_rng(7)
-        self.codes = {pid: rng.integers(0, 65536, n) for pid, n in lengths.items()}
-
-    def encode(self, prompt_id, wav):
-        return self.codes[prompt_id]
-
-
 REQUESTS = [
     # (name, prompt id, transcript, voice description, enable_instruction)
     ("a voice description", "none", "", "a calm narrator with a low voice", False),
-    ("b 250 prompt codes", "p250", "This is the reference speech.", "", True),
-    ("c 1100 prompt codes", "p1100", "A much longer reference recording.", "", True),
+    ("b 5 s prompt wav", "p5s", "This is the reference speech.", "", True),
+    ("c 22 s prompt wav", "p22s", "A much longer reference recording.", "", True),
 ]
+PROMPT_SECONDS = {"p5s": 5.0, "p22s": 22.0}
 TEXT = "The quick brown fox jumps over the lazy dog near the riverbank."
+G_PER_ENCODE = sum(n for _, _, _, n in ENCODER_SHAPES)  # 36
+
+
+def prompt_wav(seconds: float, seed: int) -> np.ndarray:
+    """A seeded synthetic voice prompt at 16 kHz: a gliding five-harmonic
+    tone under a syllable-rate envelope, plus a little noise."""
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000
+    rng = np.random.default_rng(seed)
+    f0 = 120 + 40 * np.sin(2 * np.pi * 0.3 * t + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    tone = sum(np.sin(k * phase) / k for k in range(1, 6))
+    env = 0.2 + 0.8 * np.sin(2 * np.pi * 2.5 * t) ** 2
+    return (0.15 * env * tone + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def prompt_wavs() -> dict[str, np.ndarray]:
+    return {pid: prompt_wav(sec, seed=20 + i) for i, (pid, sec) in enumerate(PROMPT_SECONDS.items())}
+
+
+def n_prompt_codes(pid: str) -> int:
+    """Codes of a prompt: its samples padded to the next hop multiple (a
+    whole hop when already one), over the 320-sample hop."""
+    return int(16000 * PROMPT_SECONDS[pid]) // 320 + 1
 
 
 def prompt_length(tok, normalizer, n_codes, transcript, description, instruct):
@@ -504,13 +651,16 @@ def prompt_length(tok, normalizer, n_codes, transcript, description, instruct):
 
 
 def build_main_path(tok, sv):
-    """The main path's model: Llama-3.2-1B geometry and the default Vocos
-    decoder with random weights from fixed seeds, and the stub encoder of
-    ``REQUESTS``. Returns (model, params, cfg, encoder). Also used by
+    """The main path's model: Llama-3.2-1B geometry, the default Vocos
+    decoder, and the default codec encoder (``EncoderConfig()``) over a
+    full-width wav2vec-BERT 2.0 (``W2VBertConfig()``: hidden 1024, 24 layers
+    initialised, 16 run), fp32, behind a ``CachingAudioEncoder``, random
+    weights from fixed seeds. Returns (model, params, cfg, codec), codec
+    holding the caching encoder and the encoder's parts. Also used by
     tools/profile_torch_synthesis.py."""
     from tts_max_tpu_torch.inference.synthesize import LocalTtsModel
     from tts_max_tpu_torch.models import llama
-    from tts_max_tpu_torch.models.codec import api, vocos
+    from tts_max_tpu_torch.models.codec import api, encoder, vocos, w2vbert
 
     cfg = llama.llama32_1b_config()
     t0 = time.perf_counter()
@@ -518,33 +668,74 @@ def build_main_path(tok, sv):
     vcfg = vocos.VocosConfig()
     decoder = api.AudioDecoder(vocos.init_decoder(vcfg, seed=1, device="cuda"),
                                vcfg, api.DecoderConfig(), device="cuda")
+    ecfg, wcfg = encoder.EncoderConfig(), w2vbert.W2VBertConfig()
+    enc_params = encoder.init_encoder(ecfg, seed=2, device="cuda")
+    w2v = w2vbert.init_params(wcfg, seed=3, device="cuda")
+    caching = api.CachingAudioEncoder(api.AudioEncoder(
+        enc_params, ecfg, w2vbert.default_semantic_fn(params=w2v, cfg=wcfg, device="cuda"),
+        device="cuda"))
     torch.cuda.synchronize()
     log(f"main path: llama32_1b_config (vocab {cfg.vocab_size}, {cfg.n_layers} "
         f"layers, dim {cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim "
         f"{cfg.head_dim}, {cfg.dtype}) + VocosConfig (hidden {vcfg.hidden_dim}, "
-        f"depth {vcfg.depth}, vq_dim {vcfg.vq_dim}, hop {vcfg.hop_length}); "
-        f"random weights in {time.perf_counter() - t0:.2f} s")
-    encoder = StubEncoder({"p250": 250, "p1100": 1100})
-    model = LocalTtsModel(params, cfg, tok, sv, encoder, decoder, device="cuda")
-    return model, params, cfg, encoder
+        f"depth {vcfg.depth}, vq_dim {vcfg.vq_dim}, hop {vcfg.hop_length}) + "
+        f"EncoderConfig (generator features {ecfg.num_generator_features}, strides "
+        f"{ecfg.up_ratios}, acoustic {ecfg.acoustic_dim}, semantic {ecfg.semantic_dim}, "
+        f"fsq dim {ecfg.fsq.dim}) + W2VBertConfig (hidden {wcfg.hidden_size}, "
+        f"{wcfg.num_layers} layers, {wcfg.num_layers_to_run} run, {wcfg.num_heads} heads, "
+        f"ffn {wcfg.intermediate_size}), codec fp32; random weights in "
+        f"{time.perf_counter() - t0:.2f} s")
+    codec = types.SimpleNamespace(encoder=caching, params=enc_params, cfg=ecfg, w2v=w2v,
+                                  w2v_cfg=wcfg)
+    model = LocalTtsModel(params, cfg, tok, sv, caching, decoder, device="cuda")
+    return model, params, cfg, codec
 
 
 def synthesize(model, settings, request):
     _, pid, transcript, desc, instruct = request
-    return model.synthesize_speech(settings, TEXT, pid, np.zeros(16000, np.float32),
-                                   transcript, voice_description=desc,
-                                   enable_instruction=instruct)
+    wav = prompt_wavs().get(pid, np.zeros(16000, np.float32))
+    return model.synthesize_speech(settings, TEXT, pid, wav, transcript,
+                                   voice_description=desc, enable_instruction=instruct)
+
+
+@torch.inference_mode()
+def encode_split(codec, wav: np.ndarray) -> dict:
+    """One more encode of ``wav`` stage by stage, each ended by a device
+    sync: host features, the w2v-bert layers, the acoustic encoder, and the
+    rest (semantic encoder, fusion, FSQ). Returns ms per stage and the codes."""
+    from tts_max_tpu_torch.models.codec import encoder, fsq, vocos, w2vbert
+
+    padded = encoder.pad_wav_for_encode(wav[None], codec.cfg.hop_length)
+    half = codec.cfg.hop_length // 2
+    t0 = time.perf_counter()
+    feats = w2vbert.extract_features(np.pad(padded, ((0, 0), (half, half))))
+    t1 = time.perf_counter()
+    hidden = w2vbert.encode(codec.w2v, torch.from_numpy(feats).cuda(), codec.w2v_cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ac = encoder.acoustic_encoder(torch.from_numpy(padded).cuda(), codec.params["acoustic"],
+                                  codec.cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    se = encoder.semantic_encoder(hidden, codec.params["semantic"], codec.cfg)
+    n = min(ac.shape[1], se.shape[1])
+    fused = vocos.linear(torch.cat([se[:, :n], ac[:, :n]], dim=-1), codec.params["fusion"])
+    codes = fsq.encode(codec.params["quantizer"], fused, codec.cfg.fsq)[1].cpu().numpy()[0]
+    t4 = time.perf_counter()
+    return dict(features=1e3 * (t1 - t0), w2vbert=1e3 * (t2 - t1), acoustic=1e3 * (t3 - t2),
+                rest=1e3 * (t4 - t3), codes=codes)
 
 
 def run_main_path(tok, sv, counters):
-    """Three synthesis requests and an int8-KV generate; returns the model,
-    its parts and the launch counts of this path."""
+    """Three synthesis requests (two of them encode their prompt wav) and an
+    int8-KV generate; returns the model, its parts and the launch counts of
+    this path."""
     from tts_max_tpu_torch.data import normalization
     from tts_max_tpu_torch.inference.generate import generate
     from tts_max_tpu_torch.inference.synthesize import InferenceSettings
     from tts_max_tpu_torch.ops.sampling import SamplingParams
 
-    model, params, cfg, encoder = build_main_path(tok, sv)
+    model, params, cfg, codec = build_main_path(tok, sv)
     settings = InferenceSettings(max_tokens=256)
 
     for c in counters:
@@ -561,10 +752,20 @@ def run_main_path(tok, sv, counters):
             raise AssertionError(f"request {name}: bad wav {wav.shape}")
         if desc and res.encoding_time != 0.0:
             raise AssertionError("voice-description mode encoded the prompt")
-        n_codes = len(encoder.codes.get(pid, []))
+        n_codes = 0
+        enc = ""
+        if pid in PROMPT_SECONDS:
+            codes = codec.encoder.encode(pid, None)  # the request's encode, from the cache
+            n_codes, sec = len(codes), PROMPT_SECONDS[pid]
+            if not (codes.shape == (n_prompt_codes(pid),) and codes.dtype == np.int32
+                    and ((codes >= 0) & (codes < 65536)).all()):
+                raise AssertionError(f"request {name}: bad codes {codes.shape} {codes.dtype}")
+            enc = (f"encode {1e3 * res.encoding_time:.2f} ms for {sec:.0f} s of prompt "
+                   f"({1e3 * res.encoding_time / sec:.2f} ms per s, {n_codes} codes, "
+                   f"{len(np.unique(codes))} distinct), ")
         s = prompt_length(tok, normalization.create(), n_codes, transcript, desc, instruct)
         audio_s = wav.shape[1] / 16000
-        log(f"  request {name}: prompt {s} tokens, prefill "
+        log(f"  request {name}: {enc}prompt {s} tokens, prefill "
             f"{1e3 * res.prefill_time:.2f} ms, decode "
             f"{1e3 * res.decode_time / max(res.decode_steps, 1):.3f} ms/step x "
             f"{res.decode_steps} steps ({res.decode_steps / res.decode_time:.1f} "
@@ -589,14 +790,25 @@ def run_main_path(tok, sv, counters):
     log(f"  generate quantized_kv=True: 64 steps, "
         f"{1e3 * res.decode_time / res.steps:.3f} ms/step")
 
+    encoded = len({r[1] for r in REQUESTS if r[1] in PROMPT_SECONDS})
     want = {c.__name__: 0 for c in counters}
     want.update(flash_attention=cfg.n_layers * prefills,
-                flash_decode_attention=cfg.n_layers * steps)
+                flash_decode_attention=cfg.n_layers * steps,
+                activation1d_kernel=G_PER_ENCODE * encoded)
     got = {c.__name__: c.launches for c in counters}
-    log(f"launch counts over the synthesis path: {got} (expected {want})")
+    log(f"launch counts over the synthesis path: {got} (expected {want}: "
+        f"{encoded} prompts encoded)")
     if got != want:
         raise AssertionError(f"launch counts {got} != expected {want}")
-    return model, params, cfg, encoder, got
+
+    for pid, sec in PROMPT_SECONDS.items():
+        split = encode_split(codec, prompt_wavs()[pid])
+        if not np.array_equal(split.pop("codes"), codec.encoder.encode(pid, None)):
+            raise AssertionError(f"{pid}: the staged encode gave other codes")
+        log(f"  encode split, {sec:.0f} s prompt (a second encode, stage by stage, device "
+            "synchronized): " + ", ".join(f"{k} {v:.2f} ms ({v / sec:.2f} ms per s)"
+                                          for k, v in split.items()))
+    return model, params, cfg, codec, got
 
 
 # --- the serving engines at full width -----------------------------------------
@@ -613,16 +825,18 @@ DESCRIPTIONS = ["a calm narrator with a low voice", "a bright young voice, speak
 
 def engine_prompt(tok, normalizer, encoder, kind: str, i: int):
     """(prompt ids, prompt codes): a voice description with line ``i``, or
-    take ``i`` of ``TEXT`` on the 250- or 1100-code voice prompt (the takes of
-    one voice share their whole prompt)."""
+    take ``i`` of ``TEXT`` on the 5 s or 22 s voice prompt, its codes from
+    the main path's encoder cache (the takes of one voice share their whole
+    prompt)."""
     from tts_max_tpu_torch.core import prompting
 
     if kind == "desc":
         transcript, desc, instruct, codes = "", DESCRIPTIONS[i], False, []
         text = ENGINE_TEXTS[i]
     else:
-        transcript = {"p250": REQUESTS[1][2], "p1100": REQUESTS[2][2]}[kind]
-        desc, instruct, codes, text = "", True, list(encoder.codes[kind]), TEXT
+        transcript = {"p5s": REQUESTS[1][2], "p22s": REQUESTS[2][2]}[kind]
+        desc, instruct, text = "", True, TEXT
+        codes = encoder.encode(kind, prompt_wavs()[kind]).tolist()
     prompt = prompting.compile_inference_prompt(transcript, normalizer.normalize(text),
                                                 codes, desc, instruct)
     return (np.asarray(tok.encode(prompt, add_special_tokens=True), np.int32),
@@ -742,7 +956,7 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
 
     normalizer = normalization.create()
     prompts = {(kind, i): engine_prompt(tok, normalizer, encoder, kind, i)
-               for kind in ("desc", "p250", "p1100") for i in range(4)}
+               for kind in ("desc", "p5s", "p22s") for i in range(4)}
 
     def reqs(order, budgets):
         return [dict(ids=prompts[key][0], codes=prompts[key][1], budget=n, seed=100 + j)
@@ -761,8 +975,8 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
         f"window {window}, default SamplingParams unless noted")
     # e1: paged, bf16, prefix cache, the default entry point (D); the takes
     # 1-3 of each voice are admitted after the first group, as suffix hits
-    order = [("p250", 0), ("p1100", 0), ("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3),
-             ("p250", 1), ("p1100", 1), ("p250", 2), ("p1100", 2), ("p250", 3), ("p1100", 3)]
+    order = [("p5s", 0), ("p22s", 0), ("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3),
+             ("p5s", 1), ("p22s", 1), ("p5s", 2), ("p22s", 2), ("p5s", 3), ("p22s", 3)]
     e1 = reqs(order, [256, 224, 192, 208, 240, 256, 192, 232, 200, 256, 216, 248])
     e1[2]["sampling"] = SamplingParams(temperature=0.0)
     e1[3]["sampling"] = SamplingParams(top_p=0.9)
@@ -775,7 +989,7 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
         raise AssertionError("e1: no prefix-cache hit")
     del eng
     # e2: paged, int8 KV, the dma entry point (E)
-    order = [("desc", 0), ("p250", 0), ("desc", 1), ("p1100", 0), ("desc", 2), ("p250", 1)]
+    order = [("desc", 0), ("p5s", 0), ("desc", 1), ("p22s", 0), ("desc", 2), ("p5s", 1)]
     os.environ["TTS_MAX_PAGED_ATTN"] = "dma"
     try:
         eng = PagedInferenceEngine(params, cfg, block_size=64, quantized_kv=True, **common)
@@ -784,7 +998,7 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
         del eng
         # e4: paged, bf16, the grid entry point (F)
         os.environ["TTS_MAX_PAGED_ATTN"] = "grid"
-        order = [("desc", 1), ("p250", 2), ("desc", 3), ("p1100", 2)]
+        order = [("desc", 1), ("p5s", 2), ("desc", 3), ("p22s", 2)]
         eng = PagedInferenceEngine(params, cfg, block_size=64, **common)
         add(drive_engine("e4 paged bf16 grid, 4 requests", eng, reqs(order, [64] * 4),
                          decoder, sv, counters, "paged_decode_attention"))
@@ -792,8 +1006,8 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
     finally:
         os.environ.pop("TTS_MAX_PAGED_ATTN", None)
     # e3: contiguous (the CLI default engine), kernel B at B = 8
-    order = [("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3), ("p250", 0), ("p250", 1),
-             ("p1100", 0), ("p1100", 1)]
+    order = [("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3), ("p5s", 0), ("p5s", 1),
+             ("p22s", 0), ("p22s", 1)]
     eng = InferenceEngine(params, cfg, **common)
     add(drive_engine("e3 contiguous bf16, 8 requests", eng, reqs(order, [256] * 8), decoder,
                      sv, counters, "flash_decode_attention"))
@@ -806,7 +1020,9 @@ def main() -> int:
               "CUDA card", file=sys.stderr)
         return 1
     from tts_max_tpu_torch.core import tokenization
+    from tts_max_tpu_torch.device import full_fp32
     from tts_max_tpu_torch.ops import cuda_build
+    from tts_max_tpu_torch.ops.act1d import activation1d_kernel
     from tts_max_tpu_torch.ops.flash_attention import flash_attention
     from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
     from tts_max_tpu_torch.ops.paged_attention import (
@@ -815,8 +1031,7 @@ def main() -> int:
         paged_decode_attention_dma,
     )
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_fp32()
     card = gpu_line()
     log(f"gpu: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -840,7 +1055,8 @@ def main() -> int:
     from tts_max_tpu_torch.data import normalization
 
     _, pid, transcript, desc, instruct = REQUESTS[2]
-    s_c = prompt_length(tok, normalization.create(), 1100, transcript, desc, instruct)
+    s_c = prompt_length(tok, normalization.create(), n_prompt_codes(pid), transcript, desc,
+                        instruct)
     bucket_c = -(-s_c // 64) * 64
 
     timer = Timer()
@@ -849,13 +1065,15 @@ def main() -> int:
                                (1024, 64, torch.float32)], main_s=bucket_c)
     b = check_kernel_b(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     paged = check_paged(timer)
+    g = check_kernel_g(timer)
     del timer
     check_small_model(tok, sv)
     check_small_engine(tok, sv)
+    check_small_encoder()
     counters = [flash_attention, flash_decode_attention, paged_decode_attention_dense,
-                paged_decode_attention_dma, paged_decode_attention]
-    model, params, cfg, encoder, launches = run_main_path(tok, sv, counters)
-    for name, n in run_engines(tok, sv, params, cfg, encoder, model._audio_decoder,
+                paged_decode_attention_dma, paged_decode_attention, activation1d_kernel]
+    model, params, cfg, codec, launches = run_main_path(tok, sv, counters)
+    for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
                                counters).items():
         launches[name] += n
     log(f"launch counts summed over the main paths: {launches}")
@@ -873,6 +1091,7 @@ def main() -> int:
             "tts_max_tpu/ops/paged_attention.py:246", paged["E"]),
         row(paged_decode_attention, "paged_decode.cu",
             "tts_max_tpu/ops/paged_attention.py:663", paged["F"]),
+        row(activation1d_kernel, "act1d.cu", "tts_max_tpu/ops/pallas_act1d.py:137", g),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

@@ -2,6 +2,8 @@
 weights: FSQ index decode, the same-padding ISTFT and the whole Vocos
 decode (the 16 kHz layout and one with an upsampler), fp32, atol 1e-4."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ from tts_max_tpu.ops import stft as jstft
 from tts_max_tpu_torch import convert
 from tts_max_tpu_torch.models.codec import api
 from tts_max_tpu_torch.models.codec import fsq as tfsq
+from tts_max_tpu_torch.models.codec import torch_import
 from tts_max_tpu_torch.models.codec import vocos as tv
 from tts_max_tpu_torch.ops import stft as tstft
 
@@ -85,9 +88,39 @@ def test_audio_decoder_wraps_decode():
         wav, tv.decode(params, torch.from_numpy(codes)[None], cfg).numpy())
 
 
-def test_create_decoder_needs_params():
-    with pytest.raises(NotImplementedError):
+def test_create_decoder_needs_params(tmp_path, monkeypatch):
+    """``create_decoder`` needs ``params=`` or a checkpoint: a torch file of
+    the golden fixture's decoder state dict, its convs rewritten in both
+    weight-norm forms, decodes as the same weights given as ``params=``
+    (and as the fixture's torch decoder). The fixture has the tiny widths,
+    which stand in for the published ones the config gives."""
+    with pytest.raises(ValueError, match="checkpoint_path or params"):
         api.create_decoder(config=api.DecoderConfig(), device="cpu")
-    params = tv.init_decoder(tv.VocosConfig(depth=1), seed=0, device="cpu")
-    dec = api.create_decoder(params=params, config=api.DecoderConfig(), device="cpu")
+    data = dict(np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                     "codec_golden.npz")))
+    sd = {k: torch.from_numpy(v) for k, v in data.items()
+          if k.startswith(("generator.", "fc_post_a."))}
+    rng = np.random.default_rng(0)
+    convs = sorted(k[:-len(".weight")] for k, v in sd.items()
+                   if k.endswith(".weight") and v.ndim == 3)
+    assert len(convs) == 9
+    for i, base in enumerate(convs):
+        w = sd.pop(f"{base}.weight")
+        v = w * torch.from_numpy(rng.uniform(0.5, 2.0, (w.shape[0], 1, 1)).astype(np.float32))
+        g = w.norm(dim=(1, 2), keepdim=True)
+        names = (("weight_g", "weight_v") if i % 2 else
+                 ("parametrizations.weight.original0", "parametrizations.weight.original1"))
+        sd[f"{base}.{names[0]}"], sd[f"{base}.{names[1]}"] = g, v
+    path = tmp_path / "codec.pt"
+    torch.save({"state_dict": sd}, path)
+    cfg = tv.tiny_vocos_config()
+    monkeypatch.setattr(api.DecoderConfig, "vocos_config", lambda self: cfg)
+    dec = api.create_decoder(checkpoint_path=str(path), device="cpu")
     assert dec.sample_rate == 16000 and dec.token_rate == 50
+    golden = {k: v for k, v in data.items() if not k.startswith("__")}
+    ref = api.create_decoder(params=torch_import.import_decoder(golden, cfg, device="cpu"),
+                             device="cpu")
+    codes = data["__dec_codes"]
+    wav = dec.decode(codes)
+    np.testing.assert_allclose(wav, ref.decode(codes), atol=1e-5)
+    np.testing.assert_allclose(wav, data["__dec_wav"], atol=5e-4, rtol=1e-3)

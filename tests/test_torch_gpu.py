@@ -98,3 +98,22 @@ def test_paged_kernel_matches_plain(quant):
         outs.append(pa.paged_decode_attention_dense(q, k, v, table, lens, layer=i))
         for out in outs:
             torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c", [(1, 3000, 48), (2, 65, 4), (2, 1, 4), (1, 700, 96)])
+def test_act1d_kernel_matches_plain(b, t, c):
+    """Kernel G against its plain version ``activation1d_fused`` on the card, fp32:
+    sequences at different scales (a halo that read the other sequence
+    would show), T around and below one block, masked channels (C = 4)."""
+    _cuda()
+    from tts_max_tpu_torch.ops.act1d import activation1d_fused, activation1d_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(b, t, c, generator=g, device="cuda")
+    x[0] *= 40.0
+    x[-1] *= 0.01
+    p = {k: 0.3 * torch.randn(c, generator=g, device="cuda") for k in ("alpha", "beta")}
+    rtol, atol = KERNEL_TOL[torch.float32]
+    torch.testing.assert_close(activation1d_kernel(x, p), activation1d_fused(x, p),
+                               rtol=rtol, atol=atol)

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports no JAX and nothing of ``tts_max_tpu``;
+"""The port stands alone: it imports no JAX, nothing of ``tts_max_tpu`` and
+no ``transformers`` (the card's machine has neither JAX nor transformers);
 nor do the scripts that drive it on the card (``chip_smoke.py``,
 ``tools/profile_torch_synthesis.py``)."""
 
@@ -12,10 +13,8 @@ PKG = ROOT / "tts_max_tpu_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
-_IMPORT = re.compile(
-    rf"^\s*(?:import\s+(?:jax\b|{_JAX_PKG})|from\s+(?:jax\b|{_JAX_PKG})[\s.])",
-    re.MULTILINE,
-)
+_BLOCKED = rf"(?:jax\b|transformers\b|{_JAX_PKG})"
+_IMPORT = re.compile(rf"^\s*(?:import\s+{_BLOCKED}|from\s+{_BLOCKED}[\s.])", re.MULTILINE)
 
 
 def _modules():
@@ -32,6 +31,9 @@ def test_import_regex_tells_the_packages_apart():
     assert not _IMPORT.search("from tts_max_tpu_torch.models import llama")
     assert not _IMPORT.search("import tts_max_tpu_torch.ops")
     assert not _IMPORT.search("from jaxtyping import Array")
+    assert _IMPORT.search("    from transformers import SeamlessM4TFeatureExtractor")
+    assert _IMPORT.search("import transformers")
+    assert not _IMPORT.search("import transformers_stream_generator")
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
@@ -44,22 +46,24 @@ def test_no_jax_or_reference_package_imports_in_sources():
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter where ``import jax`` fails, every module of the
-    port and both scripts import, and no ``tts_max_tpu`` module gets
-    loaded."""
+    """In a fresh interpreter where ``import jax`` and ``import
+    transformers`` fail, every module of the port and both scripts import,
+    and no ``tts_max_tpu`` module gets loaded."""
     mods = list(_modules())
     assert len(mods) > 20
     scripts = [str(p) for p in SCRIPTS]
     code = (
         "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['transformers'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         f"for path in {scripts!r}:\n"
         "    spec = importlib.util.spec_from_file_location('script', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'tts_max_tpu'"
-        " or m.startswith('tts_max_tpu.') or m == 'jax' and sys.modules[m]]\n"
+        " or m.startswith('tts_max_tpu.')"
+        " or m in ('jax', 'transformers') and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )

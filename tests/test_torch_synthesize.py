@@ -1,8 +1,12 @@
 """End to end: the port's ``LocalTtsModel.synthesize_speech`` against the
 JAX package's on the same converted weights, greedy, fp32, with a stub
 encoder returning the same prompt codes: identical speech ids, the wav
-within 1e-4, and no prompt encoding in voice-description mode. Also: every
-entry point defaults to CUDA and, on a machine without it, raises."""
+within 1e-4, and no prompt encoding in voice-description mode. Then the
+real prompt encoders of both packages (``AudioEncoder``: w2v-bert features
+and layers, the acoustic encoder, FSQ) on a prompt wav: identical codes,
+and identical greedy speech ids through ``synthesize_speech`` and
+``complete_prompt``. Also: every entry point defaults to CUDA and, on a
+machine without it, raises."""
 
 import dataclasses
 
@@ -16,14 +20,18 @@ from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu.inference import synthesize as jsyn
 from tts_max_tpu.models import llama as jl
 from tts_max_tpu.models.codec import api as japi
+from tts_max_tpu.models.codec import encoder as jenc
 from tts_max_tpu.models.codec import vocos as jv
+from tts_max_tpu.models.codec import w2vbert as jw
 from tts_max_tpu_torch import convert
 from tts_max_tpu_torch.core import tokenization as ttok
 from tts_max_tpu_torch.inference import generate as tg
 from tts_max_tpu_torch.inference import synthesize as tsyn
 from tts_max_tpu_torch.models import llama as tl
 from tts_max_tpu_torch.models.codec import api as tapi
+from tts_max_tpu_torch.models.codec import encoder as tenc
 from tts_max_tpu_torch.models.codec import vocos as tv
+from tts_max_tpu_torch.models.codec import w2vbert as tw
 from tts_max_tpu_torch.ops import sampling as ts
 
 
@@ -100,10 +108,98 @@ def test_generated_speech_ids_match_jax(pipelines):
     np.testing.assert_array_equal(ours, ref)
 
 
+@pytest.fixture(scope="module")
+def encoders():
+    """Tiny codec encoders of both packages on the same weights: a tiny
+    w2v-bert over the real 160 features, and a tiny encoder whose conv
+    kernels are x10 and SnakeBeta parameters random, so that the codes
+    vary."""
+    pytest.importorskip("transformers")  # the JAX package's features need it
+    wcfg = {**jw.tiny_w2vbert_config().__dict__, "feature_dim": 160}
+    jwc, twc = jw.W2VBertConfig(**wcfg), tw.W2VBertConfig(**wcfg)
+    ecfg = {**jenc.tiny_encoder_config().__dict__, "semantic_input_dim": jwc.hidden_size}
+    jec = jenc.EncoderConfig(**ecfg)
+    tec = tenc.EncoderConfig(**{**ecfg, "fsq": tenc.fsq.FSQConfig(dim=jec.fsq.dim)})
+    # weights drawn by the port (JAX's init compiles for ~30 s on the CPU),
+    # handed to both packages as numpy
+    wp = jax.tree_util.tree_map(lambda t: t.numpy(), tw.init_params(twc, seed=5, device="cpu"))
+    rng = np.random.default_rng(6)
+
+    def livelier(path, x):
+        if path[-1].key in ("alpha", "beta"):
+            return rng.standard_normal(x.shape).astype(np.float32) * 0.3
+        return x * 10 if path[-1].key == "kernel" and x.ndim == 3 else x
+
+    ep = jax.tree_util.tree_map_with_path(
+        livelier, jax.tree_util.tree_map(lambda t: t.numpy(),
+                                         tenc.init_encoder(tec, seed=7, device="cpu")))
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    jenc_ = japi.AudioEncoder(to_j(ep), jec, jw.default_semantic_fn(params=to_j(wp), cfg=jwc))
+    tenc_ = tapi.AudioEncoder(
+        convert.encoder_from_numpy(to_np(ep), tec, device="cpu"), tec,
+        tw.default_semantic_fn(params=convert.w2vbert_from_numpy(to_np(wp), twc, device="cpu"),
+                               cfg=twc, device="cpu"), device="cpu")
+    return jenc_, tenc_
+
+
+def _prompt_wav(n=8000, seed=8):
+    """Half a second of a seeded tone-plus-noise prompt."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    return (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def test_audio_encoder_codes_match_jax(encoders):
+    jenc_, tenc_ = encoders
+    wav = _prompt_wav()
+    ref = jenc_.encode(wav)
+    got = tenc_.encode(wav)
+    assert got.shape == ref.shape == (26,) and got.dtype == np.int32
+    assert len(np.unique(ref)) > 5
+    np.testing.assert_array_equal(got, ref)
+    batch = np.stack([wav, _prompt_wav(seed=9)])
+    np.testing.assert_array_equal(tenc_.encode(batch), jenc_.encode(batch))
+
+
+def test_synthesis_from_a_prompt_wav_matches_jax(pipelines, encoders):
+    """Greedy speech ids identical through both packages' real encoders."""
+    jmodel, tmodel = pipelines
+    jenc_, tenc_ = encoders
+    jm = jsyn.LocalTtsModel(jmodel._params, jmodel._cfg, jmodel._tokenizer, jmodel._sv,
+                            japi.CachingAudioEncoder(jenc_), jmodel._audio_decoder)
+    tm = tsyn.LocalTtsModel(tmodel._params, tmodel._cfg, tmodel._tokenizer, tmodel._sv,
+                            tapi.CachingAudioEncoder(tenc_), tmodel._audio_decoder, device="cpu")
+    kw = dict(text_to_synthesize="Hello there, 42 friends!", prompt_id="p1",
+              prompt_wav=_prompt_wav(), audio_prompt_transcription="reference speech")
+    ref = jm.synthesize_speech(jsyn.InferenceSettings(temperature=0.0, max_tokens=12,
+                                                      min_tokens=4), **kw)
+    ours = tm.synthesize_speech(tsyn.InferenceSettings(temperature=0.0, max_tokens=12,
+                                                       min_tokens=4), **kw)
+    np.testing.assert_array_equal(tm._audio_encoder.encode("p1", None),
+                                  jm._audio_encoder.encode("p1", None))
+    # identical ids decode to the same wav; one differing id moves a 320-sample
+    # frame far more than 1e-4
+    assert ours.wav.shape == ref.wav.shape and ours.encoding_time > 0.0
+    np.testing.assert_allclose(ours.wav, ref.wav, atol=1e-4)
+    js = jsyn.InferenceSettings(temperature=0.0, max_tokens=6)
+    ts_ = tsyn.InferenceSettings(temperature=0.0, max_tokens=6)
+    np.testing.assert_allclose(tm.complete_prompt(_prompt_wav(seed=10), ts_),
+                               jm.complete_prompt(_prompt_wav(seed=10), js), atol=1e-4)
+
+
 def _entry_points():
     cfg = tl.tiny_config()
     vcfg = tv.tiny_vocos_config()
+    ecfg, wcfg = tenc.tiny_encoder_config(), tw.tiny_w2vbert_config()
     return {
+        "init_encoder": lambda: tenc.init_encoder(ecfg),
+        "w2vbert_init_params": lambda: tw.init_params(wcfg),
+        "encoder_from_numpy": lambda: convert.encoder_from_numpy({}, ecfg),
+        "w2vbert_from_numpy": lambda: convert.w2vbert_from_numpy({}, wcfg),
+        "AudioEncoder": lambda: tapi.AudioEncoder({}, ecfg, None),
+        "create_encoder": lambda: tapi.create_encoder(params={}, semantic_fn=lambda w: w),
+        "default_semantic_fn": lambda: tw.default_semantic_fn(params={}),
         "init_params": lambda: tl.init_params(cfg),
         "init_kv_cache": lambda: tl.init_kv_cache(cfg, 1, 8),
         "init_decoder": lambda: tv.init_decoder(vcfg),

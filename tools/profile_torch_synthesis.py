@@ -3,10 +3,12 @@
 
     python3 tools/profile_torch_synthesis.py [--request c] [--max-tokens 64]
 
-On one CUDA card, with the model, stub encoder and requests of
-``chip_smoke.py``'s main path (Llama-3.2-1B and the default Vocos decoder,
-random weights from its seeds): one warm-up request, then the same request
-profiled through ``LocalTtsModel.synthesize_speech``. Prints the request's
+On one CUDA card, with the model and requests of ``chip_smoke.py``'s main
+path (Llama-3.2-1B, the default Vocos decoder, and the codec encoder with
+wav2vec-BERT 2.0, random weights from its seeds): one warm-up request, then
+the same request profiled through ``LocalTtsModel.synthesize_speech``. The
+warm-up encodes the request's prompt wav, so the profiled request takes its
+codes from the encoder's cache. Prints the request's
 phases (host clock, device synchronized), the device's busy and idle share
 over the request (the union of kernel intervals in the ``torch.profiler``
 trace), and the kernels by total device time, then one JSON line with the

@@ -1,6 +1,6 @@
 """Carry the JAX package's parameters across to the port.
 
-Both functions take the JAX parameter pytree as nested dicts (and lists) of
+Each function takes the JAX parameter pytree as nested dicts (and lists) of
 numpy arrays — e.g. ``jax.tree_util.tree_map(np.asarray, params)`` made by
 the caller — so the port itself never sees JAX. The port keeps the JAX
 names and layouts (dense kernels ``[in, out]``, layers stacked on a leading
@@ -15,13 +15,15 @@ import numpy as np
 import torch
 
 from tts_max_tpu_torch.device import resolve_device
+from tts_max_tpu_torch.models.codec.encoder import EncoderConfig
 from tts_max_tpu_torch.models.codec.vocos import VocosConfig
+from tts_max_tpu_torch.models.codec.w2vbert import W2VBertConfig
 from tts_max_tpu_torch.models.llama import LlamaConfig
 
 
 def _tree(tree, leaf, key=None):
     if isinstance(tree, dict):
-        if "q" in tree or "q4" in tree:
+        if ("q" in tree or "q4" in tree) and "scale" in tree:
             raise NotImplementedError("quantized weights are not ported yet")
         return {k: _tree(v, leaf, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -47,12 +49,51 @@ def llama_from_numpy(tree, cfg: LlamaConfig, device="cuda"):
     return params
 
 
+def _fp32(tree, device):
+    dev = resolve_device(device)
+    return _tree(tree, lambda a, key: torch.from_numpy(a.astype(np.float32)).to(dev))
+
+
+def _check(what: str, got: torch.Tensor, want: tuple) -> None:
+    if tuple(got.shape) != want:
+        raise ValueError(f"{what} {tuple(got.shape)} does not fit the config {want}")
+
+
 def vocos_from_numpy(tree, cfg: VocosConfig, device="cuda"):
     """Codec decoder parameters, all fp32."""
-    dev = resolve_device(device)
-    params = _tree(
-        tree, lambda a, key: torch.from_numpy(a.astype(np.float32)).to(dev)
-    )
-    if params["fc_post_a"]["kernel"].shape != (cfg.vq_dim, cfg.hidden_dim):
-        raise ValueError("fc_post_a does not fit the config")
+    params = _fp32(tree, device)
+    _check("fc_post_a kernel", params["fc_post_a"]["kernel"], (cfg.vq_dim, cfg.hidden_dim))
+    return params
+
+
+def encoder_from_numpy(tree, cfg: EncoderConfig, device="cuda"):
+    """Codec encoder parameters (acoustic, semantic, fusion, quantizer), all
+    fp32."""
+    params = _fp32(tree, device)
+    ac = params["acoustic"]
+    _check("acoustic initial kernel", ac["initial"]["kernel"],
+           (cfg.initial_conv_kernel_size, 1, cfg.num_generator_features))
+    if len(ac["blocks"]) != len(cfg.up_ratios):
+        raise ValueError(f"{len(ac['blocks'])} encoder blocks, config has "
+                         f"{len(cfg.up_ratios)}")
+    d = cfg.num_generator_features * 2 ** len(cfg.up_ratios)
+    _check("acoustic final kernel", ac["final"]["kernel"],
+           (cfg.final_conv_kernel_size, d, cfg.acoustic_dim))
+    _check("semantic initial kernel", params["semantic"]["initial"]["kernel"],
+           (cfg.semantic_kernel_size, cfg.semantic_input_dim, cfg.semantic_dim))
+    _check("fusion kernel", params["fusion"]["kernel"], (cfg.fused_dim, cfg.fused_dim))
+    _check("project_in kernel", params["quantizer"]["project_in"]["kernel"],
+           (cfg.fsq.dim, cfg.fsq.codebook_dim))
+    return params
+
+
+def w2vbert_from_numpy(tree, cfg: W2VBertConfig, device="cuda"):
+    """wav2vec-BERT parameters (layers stacked), all fp32."""
+    params = _fp32(tree, device)
+    _check("feature projection kernel", params["feature_projection"]["projection"]["kernel"],
+           (cfg.feature_dim, cfg.hidden_size))
+    _check("stacked q kernel", params["layers"]["attn"]["q"]["kernel"],
+           (cfg.num_layers, cfg.hidden_size, cfg.hidden_size))
+    _check("distance embedding", params["layers"]["attn"]["distance_embedding"],
+           (cfg.num_layers, cfg.num_distance_embeddings, cfg.head_size))
     return params

@@ -24,3 +24,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         )
     return dev if dev.index is not None else torch.device(
         "cuda", torch.cuda.current_device())
+
+
+def full_fp32() -> None:
+    """Full fp32 for fp32 matmuls and cuDNN convolutions, for the whole
+    process. PyTorch lets cuDNN run fp32 convolutions in TF32 (about three
+    decimal digits) by default; the codec is fp32 like the JAX package's,
+    so its entry points (``AudioEncoder``, ``AudioDecoder``) call this once,
+    when they are built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

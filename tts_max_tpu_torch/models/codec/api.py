@@ -1,8 +1,8 @@
 """Public codec APIs (counterpart of ``tts_max_tpu/models/codec/api.py``):
-``DecoderConfig``, ``AudioDecoder``, ``create_decoder`` and the
-prompt-caching ``CachingAudioEncoder`` wrapper. The audio encoder itself and
-the loading of torch codec checkpoints are not ported yet:
-``CachingAudioEncoder`` wraps any object with ``encode(wav) -> codes``.
+``AudioEncoder`` (waveform -> codes), ``AudioDecoder`` (codes ->
+waveform), the prompt-caching ``CachingAudioEncoder``, ``DecoderConfig``
+read from ``model_config.json``, and factories that take port parameters
+(``params=``) or a torch xcodec2 checkpoint.
 """
 
 from __future__ import annotations
@@ -10,13 +10,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from tts_max_tpu_torch.device import resolve_device
-from tts_max_tpu_torch.models.codec import vocos
+from tts_max_tpu_torch.core import constants
+from tts_max_tpu_torch.device import full_fp32, resolve_device
+from tts_max_tpu_torch.models.codec import encoder as enc
+from tts_max_tpu_torch.models.codec import torch_import, vocos
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +57,8 @@ class DecoderConfig:
 
 class AudioDecoder:
     """codes -> waveform. ``params`` are port parameters (``init_decoder``
-    or ``convert.vocos_from_numpy``) on ``device``."""
+    or ``convert.vocos_from_numpy``) on ``device``. Building one turns TF32
+    off for the process (``device.full_fp32``)."""
 
     def __init__(self, params: Any, cfg: vocos.VocosConfig, config: DecoderConfig,
                  device="cuda"):
@@ -63,6 +66,7 @@ class AudioDecoder:
         emb = params["fc_post_a"]["kernel"]
         if emb.device != self.device:
             raise ValueError(f"decoder params live on {emb.device}, not on {self.device}")
+        full_fp32()
         self._params = params
         self._cfg = cfg
         self.config = config
@@ -82,6 +86,44 @@ class AudioDecoder:
         if codes.ndim == 1:
             codes = codes[None]
         return vocos.decode(self._params, codes, self._cfg).cpu().numpy()
+
+
+class AudioEncoder:
+    """waveform -> FSQ codes. ``params`` are port parameters
+    (``encoder.init_encoder`` or ``convert.encoder_from_numpy``) on
+    ``device``; ``semantic_fn(padded_wav [B, L] numpy) -> feats [B, T, C]``
+    on ``device`` supplies the wav2vec-BERT layer-16 hidden states
+    (``w2vbert.default_semantic_fn``) or any stand-in of that shape.
+    Building one turns TF32 off for the process (``device.full_fp32``)."""
+
+    def __init__(self, params: Any, cfg: enc.EncoderConfig,
+                 semantic_fn: Callable[[np.ndarray], torch.Tensor],
+                 sample_rate: int = constants.CODEC_SAMPLE_RATE,
+                 token_rate: int = constants.CODEC_TOKEN_RATE, device="cuda"):
+        self.device = resolve_device(device)
+        fusion = params["fusion"]["kernel"]
+        if fusion.device != self.device:
+            raise ValueError(f"encoder params live on {fusion.device}, not on {self.device}")
+        full_fp32()
+        self._params = params
+        self._cfg = cfg
+        self._semantic_fn = semantic_fn
+        self.sample_rate = sample_rate
+        self.token_rate = token_rate
+
+    @torch.inference_mode()
+    def encode(self, wav) -> np.ndarray:
+        """wav: [L] or [B, L] float -> codes int32 [T] / [B, T] (numpy). The
+        wav is padded to a hop multiple on the host."""
+        wav = np.asarray(wav, dtype=np.float32)
+        squeeze = wav.ndim == 1
+        if squeeze:
+            wav = wav[None]
+        wav = enc.pad_wav_for_encode(wav, self._cfg.hop_length)
+        feats = self._semantic_fn(wav)
+        codes = enc.encode_features(self._params, torch.from_numpy(wav).to(self.device),
+                                    feats, self._cfg).cpu().numpy()
+        return codes[0] if squeeze else codes
 
 
 class CachingAudioEncoder:
@@ -114,8 +156,8 @@ def create_decoder(
     device="cuda",
 ) -> AudioDecoder:
     """``model_config.json`` lives next to the checkpoint unless given
-    explicitly. Only ``params=`` is supported so far: reading a codec
-    checkpoint is not ported yet."""
+    explicitly; ``params=`` (port parameters on ``device``) or a torch
+    xcodec2 checkpoint."""
     if config is None:
         if model_config_path is None and checkpoint_path is not None:
             model_config_path = os.path.join(
@@ -126,8 +168,33 @@ def create_decoder(
             if model_config_path and os.path.exists(model_config_path)
             else DecoderConfig()
         )
+    vcfg = config.vocos_config()
     if params is None:
-        raise NotImplementedError(
-            "loading a codec checkpoint is not ported yet; pass params="
-        )
-    return AudioDecoder(params, config.vocos_config(), config, device=device)
+        if checkpoint_path is None:
+            raise ValueError("need checkpoint_path or params")
+        params = torch_import.import_decoder(
+            torch_import.load_torch_checkpoint(checkpoint_path), vcfg, device=device)
+    return AudioDecoder(params, vcfg, config, device=device)
+
+
+def create_encoder(
+    checkpoint_path: str | None = None,
+    params: Any | None = None,
+    cfg: enc.EncoderConfig | None = None,
+    semantic_fn: Callable | None = None,
+    device="cuda",
+) -> AudioEncoder:
+    """``params=`` (port parameters on ``device``) or a torch xcodec2
+    checkpoint; without ``semantic_fn``, w2v-bert weights are read from the
+    same checkpoint, as the JAX package does."""
+    cfg = cfg or enc.EncoderConfig()
+    if params is None:
+        if checkpoint_path is None:
+            raise ValueError("need checkpoint_path or params")
+        params = torch_import.import_encoder(
+            torch_import.load_torch_checkpoint(checkpoint_path), cfg, device=device)
+    if semantic_fn is None:
+        from tts_max_tpu_torch.models.codec import w2vbert
+
+        semantic_fn = w2vbert.default_semantic_fn(checkpoint_path, device=device)
+    return AudioEncoder(params, cfg, semantic_fn, device=device)

@@ -9,9 +9,9 @@ head (n_fft = 4·hop, same-padding overlap-add).
 Tensors are channel-last [B, T, C] and parameters keep the JAX package's
 names and layouts: conv kernels [K, Cin, Cout], transposed-conv kernels
 [K, Cout, Cin], dense kernels [in, out], transformer layers stacked on a
-leading ``depth`` axis. Convolutions are written as one matmul over the K
-shifted copies of the input (``conv1d``), so they run as plain matrix
-products in fp32. The decoder runs in fp32.
+leading ``depth`` axis. Convolutions (``conv1d``, shared with the encoder)
+go to ``F.conv1d``, or to one matmul for a pointwise one. The decoder runs
+in fp32: ``AudioDecoder`` turns TF32 off (``device.full_fp32``).
 """
 
 from __future__ import annotations
@@ -68,18 +68,17 @@ def tiny_vocos_config() -> VocosConfig:
 # --- primitive helpers ------------------------------------------------------
 
 
-def conv1d(x: torch.Tensor, p, padding: int = 0) -> torch.Tensor:
-    """Stride-1 conv over [B, T, Cin]; p = {"kernel": [K, Cin, Cout], "bias"?}."""
+def conv1d(x: torch.Tensor, p, stride: int = 1, padding: int = 0, dilation: int = 1,
+           groups: int = 1) -> torch.Tensor:
+    """Conv over channel-last [B, T, Cin] -> contiguous [B, T_out, Cout];
+    p = {"kernel": [K, Cin/groups, Cout], "bias"?: [Cout]}."""
     w = p["kernel"]
-    ksize, cin, cout = w.shape
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding))
-    if ksize == 1:
-        y = x @ w[0]
-    else:
-        cols = x.unfold(1, ksize, 1).transpose(-1, -2)  # [B, T_out, K, Cin]
-        y = cols.reshape(*cols.shape[:2], ksize * cin) @ w.reshape(ksize * cin, cout)
-    return y + p["bias"] if "bias" in p else y
+    if w.shape[0] == 1 and stride == 1 and groups == 1:
+        y = (F.pad(x, (0, 0, padding, padding)) if padding else x) @ w[0]
+        return y + p["bias"] if "bias" in p else y
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), p.get("bias"), stride=stride,
+                 padding=padding, dilation=dilation, groups=groups)
+    return y.transpose(1, 2).contiguous()
 
 
 def conv_transpose1d(x: torch.Tensor, p, stride: int, padding: int = 0) -> torch.Tensor:
