@@ -6,21 +6,24 @@
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from ``tts_max_tpu_torch/csrc`` with nvcc (one process per source,
 in parallel) and holds each against its plain PyTorch version on the card:
-kernel A (prefill), kernel B (contiguous decode), the paged decode
-kernel behind its three entry points (D, E, F) and D's stacked form, and
-kernel G (the codec encoder's anti-aliased SnakeBeta) at the six shapes of
-a 22 s prompt's encode and at edge cases. It checks the port's GPU path
-against its CPU path on a small model, through ``generate`` and through
-the paged engine under each paged entry point, and on a small codec
-encoder. Then it drives the main paths at the full width of Llama-3.2-1B,
-the full Vocos decoder and the full codec encoder with wav2vec-BERT 2.0,
-random weights from seeds: text and a 5 s or 22 s prompt wav to waveform
-through ``LocalTtsModel.synthesize_speech`` (the prompt encode split into
-host features, w2v-bert and the acoustic encoder), and the serving engines
-(``inference/engine.py``: paged with prefix caching, paged int8 KV,
-contiguous, paged under the ``grid`` entry point), vocoding every
-completion. Launch counters, set to 0 before each path and read after it,
-must equal what that path's requests and the engines' own counts imply.
+kernel A (prefill), kernel B (contiguous decode), kernel C (ragged decode,
+the contiguous engine's), the paged decode kernel behind its three entry
+points (D, E, F) and D's stacked form, and kernel G (the codec encoder's
+anti-aliased SnakeBeta) at the six shapes of a 22 s prompt's encode and at
+edge cases. It checks the port's GPU path against its CPU path on a small
+model, through ``generate`` and through the paged engine under each paged
+entry point, and on a small codec encoder. Then it drives the main paths at
+the full width of Llama-3.2-1B, the full Vocos decoder and the full codec
+encoder with wav2vec-BERT 2.0, random weights from seeds: text and a 5 s or
+22 s prompt wav to waveform through ``LocalTtsModel.synthesize_speech`` (the
+prompt encode split into host features, w2v-bert and the acoustic encoder),
+the serving engines (``inference/engine.py``: paged with prefix caching,
+paged int8 KV, contiguous, paged under the ``grid`` entry point), vocoding
+every completion, and the three serving CLIs (``tts_max_tpu_torch/tools``:
+single shot, a JSONL batch, the HTTP server with a streamed request) on an
+HF directory of the main path's weights that the port's writer stores in
+BF16. Launch counters, set to 0 before each path and read after it, must
+equal what that path's requests and the engines' own counts imply.
 The next-to-last lines are a JSON summary of the kernels and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run ends with a nonzero exit and no result
@@ -33,6 +36,7 @@ import collections
 import functools
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -248,6 +252,70 @@ def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
             f"library_ms={lib} bound_ms={bound:.5f} ({by})")
         main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                     bound_by=by)
+    return dict(max_abs_err=worst, **main)
+
+
+# --- kernel C -----------------------------------------------------------------
+
+# the contiguous engine's pool mid-decode (e3: 8 slots, max_len 2048)
+E3_LENS = [431, 431, 431, 431, 496, 496, 1351, 1351]
+
+
+def check_kernel_c(timer: Timer, main_t: int, main_len: int) -> dict:
+    """Kernel C against its plain version at e3's shape (the main shape,
+    timed beside kernel B and a masked SDPA on the same inputs) and at the
+    edges: batch 1 at request (c)'s length, fp32, D = 128, n_rep 1, 4 and 8,
+    T = 200, lengths 0, 1 and T, NaN past every length."""
+    from tts_max_tpu_torch.ops.attention import ragged_decode_attention_plain as plain
+    from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
+    from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
+
+    log("kernel C: ragged_decode_attention vs ops.attention.ragged_decode_attention_plain "
+        "(plain); library = F.scaled_dot_product_attention with a length mask; kernel B "
+        "(flash_decode_attention) timed on the same inputs")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    edge = [0, 1, 2048, 129, 2047, 7, 1024, 300]
+    cases = [  # (label, B, T, Hq, Hkv, D, dtype, lengths, NaN past the lengths)
+        ("main (e3)", 8, 2048, 32, 8, 64, torch.bfloat16, E3_LENS, False),
+        ("B=1 request c", 1, main_t, 32, 8, 64, torch.bfloat16, [main_len], False),
+        ("fp32", 8, 2048, 32, 8, 64, torch.float32, edge, True),
+        ("D=128", 8, 2048, 32, 8, 128, torch.bfloat16, edge, True),
+        ("n_rep 1", 4, 512, 8, 8, 64, torch.bfloat16, [0, 1, 512, 300], True),
+        ("n_rep 8", 4, 512, 64, 8, 64, torch.bfloat16, [512, 0, 1, 200], True),
+        ("T=200", 3, 200, 32, 8, 64, torch.bfloat16, [0, 1, 200], True),
+        ("T=200 fp32 D=128 n_rep 8", 3, 200, 16, 2, 128, torch.float32, [200, 77, 0], True),
+    ]
+    worst, main = 0.0, None
+    for (label, b, t, hq, hkv, d, dtype, lens, nan_tail) in cases:
+        q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dtype)
+        kc, vc = (torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(dtype)
+                  for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if nan_tail:
+            dead = torch.arange(t, device="cuda")[None, :] >= lengths[:, None]
+            kc[dead], vc[dead] = float("nan"), float("nan")
+        out = ragged_decode_attention(q, kc, vc, lengths)
+        ref = plain(q, kc, vc, lengths)
+        err, tol = check_close(out, ref, f"kernel C {label}")
+        if 0 in lens and not bool((out[lens.index(0)] == 0).all()):
+            raise AssertionError(f"kernel C {label}: a length of 0 did not give zeros")
+        worst = max(worst, err)
+        ms = timer.ms(lambda: ragged_decode_attention(q, kc, vc, lengths))
+        plain_ms = timer.ms(lambda: plain(q, kc, vc, lengths), iters=5)
+        bound, by = decode_bound_ms(q, kc, lengths, False)
+        extra = ""
+        if label.startswith("main"):
+            b_ms = timer.ms(lambda: flash_decode_attention(q, kc, vc, lengths))
+            mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+            qs, ks, vs = q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
+            lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True))
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                        bound_by=by)
+            extra = f" kernel_B_ms={b_ms:.4f} library_ms={lib_ms:.4f}"
+        log(f"  {label:24s} B={b} T={t:5d} Hq={hq:2d} Hkv={hkv} D={d:3d} "
+            f"{str(dtype):14s} max_abs_err={err:.3e} ({tol})  ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f}{extra} bound_ms={bound:.5f} ({by})")
     return dict(max_abs_err=worst, **main)
 
 
@@ -1005,12 +1073,202 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
         del eng
     finally:
         os.environ.pop("TTS_MAX_PAGED_ATTN", None)
-    # e3: contiguous (the CLI default engine), kernel B at B = 8
+    # e3: contiguous (the CLI default engine), kernel C at B = 8
     order = [("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3), ("p5s", 0), ("p5s", 1),
              ("p22s", 0), ("p22s", 1)]
     eng = InferenceEngine(params, cfg, **common)
     add(drive_engine("e3 contiguous bf16, 8 requests", eng, reqs(order, [256] * 8), decoder,
-                     sv, counters, "flash_decode_attention"))
+                     sv, counters, "ragged_decode_attention"))
+    return totals
+
+
+# --- the serving entry points at full width ------------------------------------
+
+SERVING_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+BATCH_BUDGETS = [128, 256, 160, 224, 192, 256, 144, 208]
+
+
+def _counts(counters) -> dict:
+    return {c.__name__: c.launches for c in counters}
+
+
+def _check_counts(label, got, want) -> None:
+    log(f"  {label}: launch counts {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got} != expected {want}")
+
+
+def _check_wav_file(label, path) -> int:
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    if not (sr == 16000 and data.dtype == np.int16 and data.ndim == 1
+            and len(data) % 320 == 0 and len(data) > 0):
+        raise AssertionError(f"{label}: {path} is {sr} Hz {data.dtype} {data.shape}")
+    return len(data)
+
+
+def run_serving(tok, sv, params, cfg, counters) -> dict:
+    """The three serving CLIs of the port, in this process, on an HF
+    directory of Llama-3.2-1B geometry written by the port's writer (the
+    main path's seed-0 weights, stored in BF16 as a real HF checkpoint
+    stores them, and an HF config.json); the codec in smoke mode, as the
+    CLIs run without codec checkpoints. Returns the launch counts summed
+    over the three."""
+    import http.client
+    import shutil
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from tts_max_tpu_torch.data.audio_io import save_wav
+    from tts_max_tpu_torch.models import hf_import
+    from tts_max_tpu_torch.tools import serve_batch, serve_http, serving_inference
+
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    model_dir = os.path.join(SERVING_DIR, "model")
+    t0 = time.perf_counter()
+    hf_import.save_model_to_hf_dir(params, cfg, model_dir, eos_token_id=sv.speech_end_id,
+                                   dtype=torch.bfloat16)
+    size = sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir))
+    log(f"serving: wrote {model_dir} (Llama-3.2-1B geometry, BF16, {size / 2 ** 30:.2f} GiB) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    wavs = {}
+    for pid in PROMPT_SECONDS:
+        wavs[pid] = os.path.join(SERVING_DIR, f"{pid}.wav")
+        save_wav(wavs[pid], prompt_wavs()[pid], 16000)
+    n_layers, totals = cfg.n_layers, {}
+
+    def add(got):
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # 1. single shot: one request on the 5 s prompt wav, 128 tokens
+    for c in counters:
+        c.launches = 0
+    out = os.path.join(SERVING_DIR, "single.wav")
+    rep = serving_inference.main([
+        "--model_dir", model_dir, "--text", TEXT, "--output", out,
+        "--prompt_wav", wavs["p5s"], "--prompt_transcript", REQUESTS[1][2],
+        "--max_tokens", "128"])
+    res = rep["result"]
+    got = _counts(counters)
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=n_layers, flash_decode_attention=n_layers * res.decode_steps,
+                activation1d_kernel=G_PER_ENCODE)
+    _check_counts("serving_inference", got, want)
+    n = _check_wav_file("serving_inference", out)
+    if not (np.isfinite(res.wav).all() and res.wav.shape == (1, n)):
+        raise AssertionError(f"serving_inference: wav {res.wav.shape}, file {n} samples")
+    log(f"  serving_inference: load {rep['load_s']:.2f} s, prompt encode "
+        f"{1e3 * res.encoding_time:.2f} ms, prefill {1e3 * res.prefill_time:.2f} ms, "
+        f"{res.decode_steps} steps "
+        f"({res.decode_steps / res.decode_time:.1f} tok/s), {n / 16000:.2f} s of audio")
+    add(got)
+
+    # 2. batch: 8 JSONL requests, voice descriptions and both prompt wavs
+    reqs_path = os.path.join(SERVING_DIR, "requests.jsonl")
+    with open(reqs_path, "w") as f:
+        for i, budget in enumerate(BATCH_BUDGETS):
+            if i % 2 == 0:
+                req = dict(text=ENGINE_TEXTS[i // 2], voice_description=DESCRIPTIONS[i // 2])
+            else:
+                pid = "p5s" if i % 4 == 1 else "p22s"
+                req = dict(text=TEXT, prompt_wav=wavs[pid],
+                           prompt_transcript={"p5s": REQUESTS[1][2], "p22s": REQUESTS[2][2]}[pid])
+            f.write(json.dumps(dict(req, max_tokens=budget)) + "\n")
+    for c in counters:
+        c.launches = 0
+    rep = serve_batch.main(["--model_dir", model_dir, "--requests", reqs_path,
+                            "--out_dir", os.path.join(SERVING_DIR, "batch"),
+                            "--max_batch", "8", "--max_len", "2048", "--max_tokens", "256"])
+    got = _counts(counters)
+    eng = rep["engine"]
+    steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
+    warm_buckets = 2  # warmup(): one prefill per prompt bucket (64, 256), one decode step
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=n_layers * (eng._prefill_groups + warm_buckets),
+                ragged_decode_attention=n_layers * (steps + 1),
+                activation1d_kernel=G_PER_ENCODE * len(PROMPT_SECONDS))
+    _check_counts(f"serve_batch ({eng._prefill_groups} prefill groups, {steps} lockstep "
+                  f"steps + 1 warmup step, K={eng.steps_per_dispatch})", got, want)
+    if sorted(rep["outputs"]) != list(range(len(BATCH_BUDGETS))):
+        raise AssertionError(f"serve_batch: wavs for requests {sorted(rep['outputs'])}")
+    samples = sum(_check_wav_file("serve_batch", p) for p in rep["outputs"].values())
+    tokens = sum(len(c.tokens) for c in rep["completions"])
+    log(f"  serve_batch: load {rep['load_s']:.2f} s, {len(rep['completions'])} completions, "
+        f"{tokens} tokens in {rep['gen_s']:.3f} s ({tokens / rep['gen_s']:.1f} tok/s), TTFT "
+        f"p50 {1e3 * np.percentile(rep['ttft_s'], 50):.1f} ms p95 "
+        f"{1e3 * np.percentile(rep['ttft_s'], 95):.1f} ms (host clock), "
+        f"{samples / 16000:.2f} s of audio in {len(rep['outputs'])} wavs")
+    add(got)
+    del rep, eng
+
+    # 3. HTTP: a TtsServer on an ephemeral port; one request whole, the same
+    # request (same seed) streamed, then /stats
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    server = serve_http.build_server(serve_http.parse_args(
+        ["--model_dir", model_dir, "--max_batch", "8", "--max_len", "2048",
+         "--max_tokens", "128"]))
+    t_build = time.perf_counter() - t0
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve_http.make_handler(server))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    body = json.dumps({"text": TEXT, "prompt_wav": wavs["p22s"], "seed": 11,
+                       "prompt_transcript": REQUESTS[2][2], "max_tokens": 128})
+
+    def post(path):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        t_req = time.perf_counter()
+        conn.request("POST", path, body=body)
+        resp = conn.getresponse()
+        data, t_audio = b"", None
+        while chunk := resp.read1(1 << 16):
+            data += chunk
+            if t_audio is None and len(data) > 44:
+                t_audio = time.perf_counter() - t_req
+        conn.close()
+        if resp.status != 200 or data[:4] != b"RIFF":
+            raise AssertionError(f"serve_http {path}: {resp.status} {data[:200]!r}")
+        return data, t_audio, time.perf_counter() - t_req
+
+    try:
+        whole, _, t_whole = post("/synthesize")
+        streamed, t_first, t_stream = post("/stream")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        conn.close()
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+        thread.join(timeout=10)
+        httpd.server_close()
+    got = _counts(counters)
+    eng = server.engine
+    steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=n_layers * (eng._prefill_groups + warm_buckets),
+                ragged_decode_attention=n_layers * (steps + 1),
+                activation1d_kernel=G_PER_ENCODE)
+    _check_counts(f"serve_http ({eng._prefill_groups} prefill groups, {steps} lockstep "
+                  "steps + 1 warmup step)", got, want)
+    n_whole = struct.unpack("<I", whole[40:44])[0]
+    if not (n_whole == len(whole) - 44 and n_whole % 640 == 0 and n_whole > 0
+            and len(streamed) - 44 == n_whole):
+        raise AssertionError(f"serve_http: whole wav {n_whole} bytes of samples, streamed "
+                             f"{len(streamed) - 44}")
+    if not (stats["completed_requests"] == 2 and stats["active_slots"] == 0):
+        raise AssertionError(f"serve_http: /stats {stats}")
+    log(f"  serve_http: build_server (load, engine, warmup) {t_build:.2f} s, "
+        f"POST /synthesize {t_whole:.3f} s, POST /stream first audio after "
+        f"{t_first:.3f} s, done {t_stream:.3f} s; {n_whole // 2} samples both ways; "
+        f"/stats {stats}")
+    add(got)
+    del server, eng
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
     return totals
 
 
@@ -1030,6 +1288,7 @@ def main() -> int:
         paged_decode_attention_dense,
         paged_decode_attention_dma,
     )
+    from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
     full_fp32()
     card = gpu_line()
@@ -1064,17 +1323,21 @@ def main() -> int:
                                (2048, 64, torch.bfloat16), (1024, 128, torch.bfloat16),
                                (1024, 64, torch.float32)], main_s=bucket_c)
     b = check_kernel_b(timer, main_t=bucket_c + 256, main_len=s_c + 128)
+    c = check_kernel_c(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     paged = check_paged(timer)
     g = check_kernel_g(timer)
     del timer
     check_small_model(tok, sv)
     check_small_engine(tok, sv)
     check_small_encoder()
-    counters = [flash_attention, flash_decode_attention, paged_decode_attention_dense,
-                paged_decode_attention_dma, paged_decode_attention, activation1d_kernel]
+    counters = [flash_attention, flash_decode_attention, ragged_decode_attention,
+                paged_decode_attention_dense, paged_decode_attention_dma,
+                paged_decode_attention, activation1d_kernel]
     model, params, cfg, codec, launches = run_main_path(tok, sv, counters)
     for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
                                counters).items():
+        launches[name] += n
+    for name, n in run_serving(tok, sv, params, cfg, counters).items():
         launches[name] += n
     log(f"launch counts summed over the main paths: {launches}")
 
@@ -1085,6 +1348,8 @@ def main() -> int:
     kernels = [
         row(flash_attention, "flash_attention.cu", "tts_max_tpu/ops/pallas_attention.py:79", a),
         row(flash_decode_attention, "flash_decode.cu", "tts_max_tpu/ops/pallas_decode.py:363", b),
+        row(ragged_decode_attention, "ragged_decode.cu", "tts_max_tpu/ops/pallas_decode.py:104",
+            c),
         row(paged_decode_attention_dense, "paged_decode.cu",
             "tts_max_tpu/ops/paged_attention.py:536", paged["D"]),
         row(paged_decode_attention_dma, "paged_decode.cu",

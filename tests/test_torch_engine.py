@@ -250,3 +250,39 @@ def test_engines_default_to_the_card(models):
         te.InferenceEngine(tp, tcfg)
     with pytest.raises(RuntimeError, match="cuda"):
         te.PagedInferenceEngine(tp, tcfg)
+
+
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_contiguous_engine_decodes_with_kernel_c_and_int8_with_b(models, monkeypatch,
+                                                                 quantized_kv):
+    """The contiguous engine's decode attention is kernel C (here its plain
+    version) over a bf16/fp32 pool and kernel B over int8 KV, one call per
+    layer and lockstep step; its greedy ids stay JAX's."""
+    calls = {"ragged": 0, "flash": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tl, "ragged_decode_attention",
+                        counted("ragged", tl.ragged_decode_attention))
+    monkeypatch.setattr(tl, "flash_decode_attention",
+                        counted("flash", tl.flash_decode_attention))
+    reqs = [dict(prompt_tokens=p, max_new_tokens=n, eos_id=-1)
+            for p, n in zip(_prompts(9, (21, 4, 50)), (9, 6, 7))]
+    jeng, teng = _engines(models, False, GREEDY, max_batch=2, max_len=128,
+                          steps_per_dispatch=4, quantized_kv=quantized_kv)
+    assert _drive(teng, reqs) == _drive(jeng, reqs)
+    steps = sum(teng.stats()["dispatches_per_stage"].values()) * 4
+    used, unused = ("flash", "ragged") if quantized_kv else ("ragged", "flash")
+    assert calls[used] == models[2].n_layers * steps and calls[unused] == 0
+
+
+def test_decode_step_ragged_refuses_an_int8_cache(models):
+    _, _, tcfg, tp = models
+    cache = tl.init_kv_cache(tcfg, 1, 16, quantized=True, device="cpu")
+    with pytest.raises(ValueError, match="int8"):
+        tl.decode_step(tp, tcfg, cache, torch.zeros(1, dtype=torch.int32),
+                       torch.zeros(1, dtype=torch.int32), ragged=True)

@@ -117,3 +117,35 @@ def test_act1d_kernel_matches_plain(b, t, c):
     rtol, atol = KERNEL_TOL[torch.float32]
     torch.testing.assert_close(activation1d_kernel(x, p), activation1d_fused(x, p),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,t,hq,hkv,d", [
+    (torch.bfloat16, 8, 2048, 32, 8, 64),   # the contiguous engine's pool
+    (torch.float32, 3, 200, 16, 2, 128),    # fp32, T not a multiple of 128, n_rep 8
+    (torch.bfloat16, 2, 300, 8, 8, 128),    # n_rep 1
+    (torch.bfloat16, 1, 1536, 32, 8, 64),   # batch 1
+])
+def test_ragged_decode_kernel_matches_plain(dtype, b, t, hq, hkv, d):
+    """Kernel C against its plain version on the card: lengths 0, 1, T and
+    ragged ones, NaN in every row past a length (the kernel never reads
+    them)."""
+    _cuda()
+    from tts_max_tpu_torch.ops.attention import ragged_decode_attention_plain
+    from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    lens = ([0, 1, t, 129, t - 1, 431, 1351, 7][:b] if b > 2 else [t, 1][:b])
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    dead = torch.arange(t, device="cuda")[None, :] >= lengths[:, None]
+    k[dead], v[dead] = float("nan"), float("nan")
+    out = ragged_decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    ref = ragged_decode_attention_plain(q, k, v, lengths)
+    rtol, atol = KERNEL_TOL[dtype]
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    if 0 in lens:
+        assert (out[lens.index(0)] == 0).all()

@@ -1,6 +1,8 @@
-"""The port stands alone: it imports no JAX, nothing of ``tts_max_tpu`` and
-no ``transformers`` (the card's machine has neither JAX nor transformers);
-nor do the scripts that drive it on the card (``chip_smoke.py``,
+"""The port stands alone: it imports no JAX, nothing of ``tts_max_tpu``, no
+``transformers`` and no ``safetensors`` (the card's machine has none of
+them), and nothing of the repository's ``tools`` package (its CLIs are
+JAX's; the port has its own in ``tts_max_tpu_torch/tools``); nor do the
+scripts that drive it on the card (``chip_smoke.py``,
 ``tools/profile_torch_synthesis.py``)."""
 
 import pathlib
@@ -13,7 +15,7 @@ PKG = ROOT / "tts_max_tpu_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
-_BLOCKED = rf"(?:jax\b|transformers\b|{_JAX_PKG})"
+_BLOCKED = rf"(?:jax\b|transformers\b|safetensors\b|tools\b|{_JAX_PKG})"
 _IMPORT = re.compile(rf"^\s*(?:import\s+{_BLOCKED}|from\s+{_BLOCKED}[\s.])", re.MULTILINE)
 
 
@@ -34,21 +36,30 @@ def test_import_regex_tells_the_packages_apart():
     assert _IMPORT.search("    from transformers import SeamlessM4TFeatureExtractor")
     assert _IMPORT.search("import transformers")
     assert not _IMPORT.search("import transformers_stream_generator")
+    assert _IMPORT.search("from safetensors.numpy import load_file")
+    assert _IMPORT.search("    from tools.serving_inference import build_codec")
+    assert _IMPORT.search("import tools.serve_batch")
+    assert not _IMPORT.search("from tts_max_tpu_torch.tools import serve_batch")
+    assert not _IMPORT.search("import toolsmith")
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
+    scanned = sorted(PKG.rglob("*.py")) + SCRIPTS
+    assert {"serving_inference.py", "serve_batch.py", "serve_http.py"} <= {
+        p.name for p in scanned if p.parent == PKG / "tools"}
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
-        for path in sorted(PKG.rglob("*.py")) + SCRIPTS
+        for path in scanned
         for m in _IMPORT.finditer(path.read_text())
     ]
     assert not offenders, offenders
 
 
 def test_every_module_imports_without_jax():
-    """In a fresh interpreter where ``import jax`` and ``import
-    transformers`` fail, every module of the port and both scripts import,
-    and no ``tts_max_tpu`` module gets loaded."""
+    """In a fresh interpreter where ``import jax``, ``import transformers``,
+    ``import safetensors`` and the repository's ``import tools`` fail, every
+    module of the port and both scripts import, and no ``tts_max_tpu``
+    module gets loaded."""
     mods = list(_modules())
     assert len(mods) > 20
     scripts = [str(p) for p in SCRIPTS]
@@ -56,6 +67,8 @@ def test_every_module_imports_without_jax():
         "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['transformers'] = None\n"
+        "sys.modules['safetensors'] = None\n"
+        "sys.modules['tools'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         f"for path in {scripts!r}:\n"
@@ -63,7 +76,7 @@ def test_every_module_imports_without_jax():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'tts_max_tpu'"
         " or m.startswith('tts_max_tpu.')"
-        " or m in ('jax', 'transformers') and sys.modules[m]]\n"
+        " or m in ('jax', 'transformers', 'safetensors', 'tools') and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )

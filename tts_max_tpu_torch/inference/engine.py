@@ -3,8 +3,8 @@
 
 - A fixed pool of ``max_batch`` slots shares one KV cache: contiguous
   ``[L, max_batch, max_len, Hkv, D]`` in ``InferenceEngine`` (decode through
-  kernel B), a block pool in ``PagedInferenceEngine`` (decode through the
-  paged kernel).
+  kernel C, the ragged kernel, or kernel B with int8 KV), a block pool in
+  ``PagedInferenceEngine`` (decode through the paged kernel).
 - Queued requests are admitted between decode dispatches in groups: a FIFO
   run of requests prefills as one ``[k, bucket]`` batch (kernel A), and every
   per-slot state row (KV, first logits, lengths, counters, request metadata,
@@ -506,8 +506,11 @@ class InferenceEngine:
         return torch.where(active, lengths, 0)
 
     def _decode_step(self, toks, lengths_w, table):
+        # kernel C over a bf16/fp32 pool; kernel B over int8 KV (C has no
+        # int8 form, in JAX as here)
         logits, _ = llama.decode_step(self.params, self.cfg, self.cache, toks,
-                                      lengths_w, logits_head=self._head)
+                                      lengths_w, logits_head=self._head,
+                                      ragged=not self.quantized_kv)
         return logits
 
     @torch.no_grad()

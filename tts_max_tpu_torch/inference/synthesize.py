@@ -64,6 +64,9 @@ class InferenceResult:
     prefill_time: float = 0.0  # seconds of the generator's prefill
     decode_time: float = 0.0  # seconds of the generator's decode loop
     decode_steps: int = 0  # decode iterations the generator ran
+    # the generated speech codes (the prompt's excluded), what the wav decodes
+    speech_codes: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
 
 
 def _bucket(n: int, step: int = 64) -> int:
@@ -181,6 +184,7 @@ class LocalTtsModel:
             prefill_time=res.prefill_time,
             decode_time=res.decode_time,
             decode_steps=res.steps,
+            speech_codes=gen_speech,
         )
 
     def complete_prompt(self, prompt_wav, inference_settings: InferenceSettings

@@ -8,9 +8,11 @@ weights and the embedding are stored in the compute dtype, norm scales in
 fp32.
 
 Attention goes through the port's kernels: ``flash_attention`` (kernel A)
-for every prefill, ``flash_decode_attention`` (kernel B) for every decode
-step over a contiguous cache, and the paged kernel
-(``ops/paged_attention.py``) for ``decode_step_paged`` over a block pool.
+for every prefill, ``flash_decode_attention`` (kernel B) for a decode step
+over a contiguous cache, or ``ragged_decode_attention`` (kernel C) when the
+caller asks for it (the contiguous serving engine does), and the paged
+kernel (``ops/paged_attention.py``) for ``decode_step_paged`` over a block
+pool.
 Both decode steps write the new token's K/V row into the cache in place,
 then attend over ``lengths + 1`` rows: PyTorch updates a tensor in place,
 so the JAX package's delta-KV machinery, which exists to stop XLA copying a
@@ -35,6 +37,7 @@ from tts_max_tpu_torch.ops.attention import window_attention
 from tts_max_tpu_torch.ops.flash_attention import flash_attention
 from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
 from tts_max_tpu_torch.ops.norms import rms_norm
+from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
 from tts_max_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict
@@ -413,18 +416,27 @@ def _decode_layers(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor
 
 
 def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
-                lengths: torch.Tensor, logits_head=None):
+                lengths: torch.Tensor, logits_head=None, *, ragged: bool = False):
     """One autoregressive step for tokens [B]; ``lengths`` [B] int32 are the
     valid cache rows BEFORE this token (also its position). Writes the
-    token's K/V rows at ``lengths`` in place, attends with kernel B over
-    ``lengths + 1`` rows and returns (logits [B, V] or [B, size], cache);
-    the caller increments lengths."""
+    token's K/V rows at ``lengths`` in place, attends over ``lengths + 1``
+    rows and returns (logits [B, V] or [B, size], cache); the caller
+    increments lengths.
+
+    ``ragged`` chooses the decode kernel, as the JAX ``decode_step``'s
+    ``flash`` keyword does: kernel B (the default; bf16, fp32 or int8 KV) or,
+    with ``ragged=True``, kernel C (``ragged_decode_attention``: one block
+    per (sequence, kv head) walking its valid rows; bf16 or fp32 KV only),
+    the serving pool's decode attention."""
+    if ragged and cache_is_quantized(cache):
+        raise ValueError("ragged decode attention (kernel C) has no int8 form; "
+                         "an int8 cache decodes with kernel B")
     rows = (torch.arange(tokens.shape[0], device=tokens.device), lengths.long())
     attend = lengths + 1
+    kernel = ragged_decode_attention if ragged else flash_decode_attention
 
     def attn(i, q):
-        return flash_decode_attention(
-            q, _layer_cache(cache["k"], i), _layer_cache(cache["v"], i), attend)
+        return kernel(q, _layer_cache(cache["k"], i), _layer_cache(cache["v"], i), attend)
 
     return _decode_layers(params, cfg, cache, tokens, lengths, rows, attn,
                           cache_max_len(cache), logits_head)

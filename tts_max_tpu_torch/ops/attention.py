@@ -106,6 +106,32 @@ def decode_attention(
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def ragged_decode_attention_plain(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, lengths: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of kernel C (JAX ``pallas_decode.ragged_decode_attention``).
+
+    q: [B, Hq, D]; caches [B, T, Hkv, D] (bf16 or fp32, no int8); lengths:
+    [B] valid rows, including the token just written. The arithmetic is the
+    ragged kernel's, which differs from kernel B's in two places: the scaled
+    query stays in fp32 (B rounds it to q's dtype), and a length of 0 gives
+    zeros (``acc / max(l, 1e-30)`` with nothing accumulated). Rows at or
+    beyond a sequence's length may hold anything, NaN included: they are
+    zeroed before they meet a probability. Returns [B, Hq, D] in q's dtype.
+    """
+    b, t, hkv, d = k_cache.shape
+    hq = q.shape[1]
+    qg = (q.float() * (d ** -0.5)).reshape(b, hkv, hq // hkv, d)
+    ok = torch.arange(t, device=q.device)[None, :] < lengths[:, None]  # [B, T]
+    kf = torch.where(ok[:, :, None, None], k_cache.float(), 0.0)
+    vf = torch.where(ok[:, :, None, None], v_cache.float(), 0.0)
+    live = ok[:, None, None, :]
+    logits = torch.einsum("bgrd,bkgd->bgrk", qg, kf).masked_fill(~live, NEG_INF)
+    p = torch.where(live, torch.exp(logits - logits.amax(-1, keepdim=True)), 0.0)
+    out = torch.einsum("bgrk,bkgd->bgrd", p, vf) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
 def window_attention(
     q: torch.Tensor, k_cache, v_cache, lengths: torch.Tensor
 ) -> torch.Tensor:
