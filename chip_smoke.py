@@ -5,10 +5,13 @@
 
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from ``tts_max_tpu_torch/csrc`` with nvcc (one process per source,
-in parallel) and holds each against its plain PyTorch version on the card:
-kernel A (prefill), kernel B (contiguous decode), kernel C (ragged decode,
+in parallel) and holds each against its plain PyTorch version on the card,
+printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``):
+kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
+1 and 8, kv_len < S, n_rep 1 and 8), kernel B (contiguous decode), kernel C (ragged decode,
 the contiguous engine's), the paged decode kernel behind its three entry
-points (D, E, F) and D's stacked form, and kernel G (the codec encoder's
+points (D, E, F) and D's stacked form (bf16 and int8 pools, block sizes
+16, 48 and 64), and kernel G (the codec encoder's
 anti-aliased SnakeBeta) at the six shapes of a 22 s prompt's encode and at
 edge cases. It checks the port's GPU path against its CPU path on a small
 model, through ``generate`` and through the paged engine under each paged
@@ -122,45 +125,91 @@ def check_close(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float,
 # --- kernel A -----------------------------------------------------------------
 
 
-def attention_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None) -> tuple[float, str]:
-    """Least time for causal attention: 4 * Hq * D FLOPs per (query, key)
-    pair with key <= query < S and key < kv_len, against the bytes of q, k,
-    v read once and the output written once."""
+def attention_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None,
+                       causal=True) -> tuple[float, str]:
+    """Least time for prefill attention: 4 * Hq * D FLOPs per (query, key)
+    pair with key < kv_len (and key <= query when causal), against the
+    bytes of q, k, v read once and the output written once."""
     kv_len = s if kv_len is None else kv_len
-    pairs = sum(min(i + 1, kv_len) for i in range(s))
+    pairs = sum(min(i + 1, kv_len) for i in range(s)) if causal else s * kv_len
     flops = 4.0 * b * hq * d * pairs
     nbytes = (2 * b * s * hq * d + 2 * b * s * hkv * d) * torch.finfo(dtype).bits // 8
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_kernel_a(timer: Timer, cases, main_s: int) -> dict:
+# The earlier kernels' times at the same shapes (the CUDA-core kernel A and the
+# paged kernel on decode_split.cuh; PERF.md section 6, one H100 80GB HBM3 at
+# 700 W), printed in the per-case lines beside this run's: (kernel, case) -> ms
+PREV_MS = {
+    ("A", "S=137"): 0.0316, ("A", "S=1024"): 0.3187, ("A", "S=2048"): 1.0047,
+    ("A", "D=128 S=1024"): 0.5883, ("A", "fp32 S=1024"): 0.3358, ("A", "main"): 0.4632,
+    ("D", "main"): 0.1400, ("E", "main"): 0.1399, ("F", "main"): 0.1403,
+    ("D", "main int8"): 0.1362, ("E", "main int8"): 0.1357, ("F", "main int8"): 0.1359,
+    ("D", "D=128"): 0.1500, ("E", "D=128"): 0.1497, ("F", "D=128"): 0.1498,
+    ("D", "D=128 int8"): 0.1487, ("E", "D=128 int8"): 0.1497, ("F", "D=128 int8"): 0.1497,
+    ("D", "B=1"): 0.0815, ("E", "B=1"): 0.0321, ("F", "B=1"): 0.0323,
+}
+
+
+def _prev(kernel: str, case: str) -> str:
+    ms = PREV_MS.get((kernel, case))
+    return "n/a" if ms is None else f"{ms:.4f}"
+
+
+def check_kernel_a(timer: Timer, main_s: int) -> dict:
+    """Kernel A against its plain version and beside SDPA: the main path's
+    prefill (request (c)'s bucket), an engine group prefill of 8 such
+    prompts, S = 137 and 2048, D = 128, fp32 (the CUDA-core path), n_rep 1
+    and 8, and kv_len < S causal and not."""
     from tts_max_tpu_torch.ops import attention
     from tts_max_tpu_torch.ops.flash_attention import flash_attention
 
     log("kernel A: flash_attention vs ops.attention.causal_attention "
-        "(plain, fp32 math, TF32 off); library = F.scaled_dot_product_attention")
+        "(plain, fp32 math, TF32 off); library = F.scaled_dot_product_attention "
+        "(with a boolean mask where kv_len < S); prev = the CUDA-core kernel")
+    bf = torch.bfloat16
+    cases = [  # (label, B, S, Hq, Hkv, D, dtype, causal, kv_len)
+        ("S=137", 1, 137, 32, 8, 64, bf, True, None),
+        ("S=1024", 1, 1024, 32, 8, 64, bf, True, None),
+        ("S=2048", 1, 2048, 32, 8, 64, bf, True, None),
+        ("D=128 S=1024", 1, 1024, 32, 8, 128, bf, True, None),
+        ("fp32 S=1024", 1, 1024, 32, 8, 64, torch.float32, True, None),
+        (f"B=8 group S={main_s}", 8, main_s, 32, 8, 64, bf, True, None),
+        ("kv_len<S non-causal", 1, main_s, 32, 8, 64, bf, False, main_s - 231),
+        ("kv_len<S causal", 1, main_s, 32, 8, 64, bf, True, main_s - 231),
+        ("n_rep 1", 1, 1024, 32, 32, 64, bf, True, None),
+        ("n_rep 8", 1, 1024, 64, 8, 64, bf, True, None),
+        ("main", 1, main_s, 32, 8, 64, bf, True, None),
+    ]
     worst, main = 0.0, None
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for (s, d, dtype) in list(cases) + [(main_s, 64, torch.bfloat16)]:
-        b, hq, hkv = 1, 32, 8
+    for (label, b, s, hq, hkv, d, dtype, causal, kv_len) in cases:
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
                    for h in (hq, hkv, hkv))
-        out = flash_attention(q, k, v, causal=True)
-        ref = attention.causal_attention(q, k, v)
-        err, tol = check_close(out, ref, f"kernel A S={s} D={d} {dtype}")
+        out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        ref = attention.causal_attention(q, k, v, causal=causal, kv_len=kv_len)
+        err, tol = check_close(out, ref, f"kernel A {label}")
         worst = max(worst, err)
-        ms = timer.ms(lambda: flash_attention(q, k, v, causal=True))
-        plain_ms = timer.ms(lambda: attention.causal_attention(q, k, v), iters=5)
+        ms = timer.ms(lambda: flash_attention(q, k, v, causal=causal, kv_len=kv_len))
+        plain_ms = timer.ms(lambda: attention.causal_attention(q, k, v, causal=causal,
+                                                               kv_len=kv_len), iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        bound, by = attention_bound_ms(b, s, hq, hkv, d, dtype)
-        log(f"  S={s:5d} D={d:3d} {str(dtype):14s} max_abs_err={err:.3e} "
-            f"({tol})  ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
-        main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                    bound_by=by)
+        if kv_len is None:
+            lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        else:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] < kv_len) & ((pos[None, :] <= pos[:, None]) | (not causal))
+            lib_ms = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        bound, by = attention_bound_ms(b, s, hq, hkv, d, dtype, kv_len, causal)
+        log(f"  {label:20s} B={b} S={s:5d} Hq={hq} Hkv={hkv} D={d:3d} {str(dtype):14s} "
+            f"max_abs_err={err:.3e} ({tol})  ms={ms:.4f} prev_ms={_prev('A', label)} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
+        if label == "main":
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                        bound_by=by)
     return dict(max_abs_err=worst, **main)
 
 
@@ -339,14 +388,14 @@ def paged_bound_ms(q, kq, table, lengths, quant: bool) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _paged_inputs(gen, b, d, lens, quant, layers=1, bs=64, p=32, n=257):
-    """q and K/V pools of ``layers`` layers [L, N, bs, 8, d] in bf16 (or
-    int8 with scales), sequences' pages shuffled through the pool (block 0,
-    the sink, owned by none), NaN in every row no sequence reads: the sink,
-    unowned pages, and rows past each length."""
+def _paged_inputs(gen, b, d, lens, quant, layers=1, bs=64, p=32, n=257, hq=32):
+    """q [b, hq, d] and K/V pools of ``layers`` layers [L, N, bs, 8, d] in
+    bf16 (or int8 with scales), sequences' pages shuffled through the pool
+    (block 0, the sink, owned by none), NaN in every row no sequence reads:
+    the sink, unowned pages, and rows past each length."""
     from tts_max_tpu_torch.models.llama import _quantize_kv
 
-    q = torch.randn(b, 32, d, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(b, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
     kv = [torch.randn(layers, n, bs, 8, d, generator=gen, device="cuda").to(torch.bfloat16)
           for _ in range(2)]
     perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(b * d))[:b * p] + 1
@@ -370,24 +419,34 @@ def _layer(c, i):
 
 def check_paged(timer: Timer) -> dict:
     """Each entry point (and D's stacked form) against the plain version on
-    every case; per entry point, its times at the main shape (B = 8, bf16)
-    and its worst error over all cases."""
+    every case: the main shape (B = 8, bf16) and int8, D = 128, batch 1,
+    n_rep 8 in int8 at batch 1, and block sizes 16 and 48 (32-row chunks
+    with rows past the page's end). Per entry point, its times at the main
+    shape and its worst error over all cases."""
     from tts_max_tpu_torch.ops import paged_attention as pa
 
     log("paged kernel (csrc/paged_decode.cu) behind D, E, F vs "
         "ops.paged_attention.paged_decode_attention_xla (plain); library = "
         "F.scaled_dot_product_attention with a length mask on the same rows already "
-        "gathered contiguous (gather excluded; bf16 only)")
+        "gathered contiguous (gather excluded; bf16 only); prev = the CUDA-core kernel")
     entries = {"D": pa.paged_decode_attention_dense, "E": pa.paged_decode_attention_dma,
                "F": pa.paged_decode_attention}
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = [("main", 8, 64, PAGED_MAIN_LENS, False), ("main int8", 8, 64, PAGED_MAIN_LENS, True),
-             ("D=128", 8, 128, PAGED_MAIN_LENS, False), ("D=128 int8", 8, 128, PAGED_MAIN_LENS, True),
-             ("B=1", 1, 64, [1358], False)]
+    lens = PAGED_MAIN_LENS
+    cases = [  # (label, B, D, lengths, int8, Hq, bs)
+        ("main", 8, 64, lens, False, 32, 64), ("main int8", 8, 64, lens, True, 32, 64),
+        ("D=128", 8, 128, lens, False, 32, 64), ("D=128 int8", 8, 128, lens, True, 32, 64),
+        ("B=1", 1, 64, [1358], False, 32, 64),
+        ("n_rep 8 B=1 int8", 1, 64, [1358], True, 64, 64),
+        ("bs=16", 8, 64, lens, False, 32, 16), ("bs=48 int8", 8, 64, lens, True, 32, 48),
+    ]
     worst = {k: 0.0 for k in entries}
     main = {}
-    for (label, b, d, lens, quant) in cases:
-        q, kp, vp, table, lengths = _paged_inputs(gen, b, d, lens, quant, layers=2)
+    for (label, b, d, lens, quant, hq, bs) in cases:
+        p = max(32, -(-max(PAGED_MAIN_LENS) // bs))  # the bs 64 table (32) and pool (257)
+        n = max(257, b * p + 1)
+        q, kp, vp, table, lengths = _paged_inputs(gen, b, d, lens, quant, layers=2, bs=bs,
+                                                  p=p, n=n, hq=hq)
         k0, v0 = _layer(kp, 1), _layer(vp, 1)
         ref = pa.paged_decode_attention_xla(q, k0, v0, table, lengths)
         plain_ms = timer.ms(lambda: pa.paged_decode_attention_xla(q, k0, v0, table, lengths),
@@ -411,9 +470,10 @@ def check_paged(timer: Timer) -> dict:
             worst[name] = max(worst[name], err)
             ms = timer.ms(lambda: fn(q, k0, v0, table, lengths))
             lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-            log(f"  {name} {label:11s} B={b} D={d:3d} {'int8' if quant else 'bf16'} "
-                f"max_abs_err={err:.3e} ({tol})  ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib} bound_ms={bound:.5f} ({by})")
+            log(f"  {name} {label:16s} B={b} Hq={hq} D={d:3d} bs={bs} "
+                f"{'int8' if quant else 'bf16'} max_abs_err={err:.3e} ({tol})  ms={ms:.4f} "
+                f"prev_ms={_prev(name, label)} plain_ms={plain_ms:.4f} library_ms={lib} "
+                f"bound_ms={bound:.5f} ({by})")
             if label == "main":
                 main[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   bound_ms=bound, bound_by=by)
@@ -423,7 +483,8 @@ def check_paged(timer: Timer) -> dict:
             out = pa.paged_decode_attention_dense(q, kp, vp, table, lengths, layer=layer)
             err, tol = check_close(out, ref_l, f"paged D stacked layer={layer} {label}")
             worst["D"] = max(worst["D"], err)
-        log(f"  D stacked form (layer=0, 1 of [2, 257, 64, 8, {d}]) {label}: within tolerance")
+        log(f"  D stacked form (layer=0, 1 of [2, {n}, {bs}, 8, {d}]) {label}: "
+            "within tolerance")
     return {k: dict(max_abs_err=worst[k], **main[k]) for k in entries}
 
 
@@ -1304,6 +1365,10 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+            # the tensor-core kernels are sized to fit their registers
+            if (name in ("flash_attention", "paged_decode") and "spill" in line
+                    and " 0 bytes spill stores, 0 bytes spill loads" not in line):
+                raise AssertionError(f"ptxas {name} spills: {line.strip()}")
 
     tok = tokenization.build_byte_tokenizer()
     sv = tokenization.speech_vocab(tok)
@@ -1319,9 +1384,7 @@ def main() -> int:
     bucket_c = -(-s_c // 64) * 64
 
     timer = Timer()
-    a = check_kernel_a(timer, [(137, 64, torch.bfloat16), (1024, 64, torch.bfloat16),
-                               (2048, 64, torch.bfloat16), (1024, 128, torch.bfloat16),
-                               (1024, 64, torch.float32)], main_s=bucket_c)
+    a = check_kernel_a(timer, main_s=bucket_c)
     b = check_kernel_b(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     c = check_kernel_c(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     paged = check_paged(timer)
@@ -1346,10 +1409,12 @@ def main() -> int:
                     replaces=replaces, launches=launches[fn.__name__], **numbers)
 
     kernels = [
-        row(flash_attention, "flash_attention.cu", "tts_max_tpu/ops/pallas_attention.py:79", a),
-        row(flash_decode_attention, "flash_decode.cu", "tts_max_tpu/ops/pallas_decode.py:363", b),
-        row(ragged_decode_attention, "ragged_decode.cu", "tts_max_tpu/ops/pallas_decode.py:104",
-            c),
+        row(flash_attention, "flash_attention.cu", "tts_max_tpu/ops/pallas_attention.py:79",
+            a),
+        row(flash_decode_attention, "flash_decode.cu", "tts_max_tpu/ops/pallas_decode.py:363",
+            b),
+        row(ragged_decode_attention, "ragged_decode.cu",
+            "tts_max_tpu/ops/pallas_decode.py:104", c),
         row(paged_decode_attention_dense, "paged_decode.cu",
             "tts_max_tpu/ops/paged_attention.py:536", paged["D"]),
         row(paged_decode_attention_dma, "paged_decode.cu",

@@ -149,3 +149,69 @@ def test_ragged_decode_kernel_matches_plain(dtype, b, t, hq, hkv, d):
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
     if 0 in lens:
         assert (out[lens.index(0)] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,kv_len", [
+    (8, 137, 64, 8, 128, False, 100),   # B = 8, D = 128, n_rep 8, kv_len < S, non-causal
+    (8, 137, 64, 8, 128, True, 100),    # the same, causal
+    (1, 200, 8, 8, 64, True, 200),      # n_rep 1, S not a multiple of 64
+])
+def test_flash_attention_tensor_cores_edge_cases(b, s, hq, hkv, d, causal, kv_len):
+    """Kernel A's bf16 (tensor-core) path against its plain version: batch 8,
+    D = 128, n_rep 1 and 8, a masked tail of keys, a partial last q tile."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    out = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    ref = causal_attention(q, k, v, causal=causal, kv_len=kv_len)
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+
+
+def _paged_case(g, b, hq, d, bs, lens, quant, p, n=97, hkv=8):
+    """A shuffled pool of ``n`` blocks of ``bs`` rows, NaN in the sink block,
+    in unowned pages and past every length (in the scales for int8)."""
+    q = torch.randn(b, hq, d, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(n, bs, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(bs))[:b * p] + 1
+    table = perm.view(b, p).to(device="cuda", dtype=torch.int32)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    live = torch.zeros(n, bs, dtype=torch.bool, device="cuda")
+    rows = torch.arange(p * bs, device="cuda")
+    for i in range(b):
+        ok = rows < lengths[i]
+        live[table[i].repeat_interleave(bs)[ok], (rows % bs)[ok]] = True
+    if quant:
+        k, v = _quantize_kv(k), _quantize_kv(v)
+    for c in (k, v):
+        (c["scale"] if quant else c)[~live] = float("nan")
+    return q, k, v, table, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hq,d,bs,quant,lens", [
+    (1, 64, 128, 64, True, [1358]),                 # n_rep 8, D = 128, int8, batch 1
+    (3, 32, 64, 8, False, [1, 300, 77]),            # bs 8: 24 of a chunk's 32 rows past the page
+    (3, 32, 64, 16, True, [16, 301, 77]),           # bs 16, int8
+    (3, 32, 64, 48, False, [47, 300, 97]),          # bs 48: a second chunk crosses the page end
+])
+def test_paged_kernel_block_sizes_and_gqa(b, hq, d, bs, quant, lens):
+    """The tensor-core paged kernel through D, E and F against the plain
+    version: every block size that worked before still works (32-row
+    chunks, the rows past a small page's end masked), n_rep 8 at D = 128
+    in int8."""
+    _cuda()
+    from tts_max_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = -(-max(lens) // bs) + 1
+    q, k, v, table, lengths = _paged_case(g, b, hq, d, bs, lens, quant, p,
+                                          n=b * p + 1 + 4)
+    ref = pa.paged_decode_attention_xla(q, k, v, table, lengths)
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    for fn in (pa.paged_decode_attention_dense, pa.paged_decode_attention_dma,
+               pa.paged_decode_attention):
+        torch.testing.assert_close(fn(q, k, v, table, lengths), ref, rtol=rtol, atol=atol)

@@ -129,6 +129,16 @@ def test_entry_points_raise_off_the_cpu_and_count_only_kernel_launches():
     assert [fn.launches for fn in ENTRY_POINTS] == before
 
 
+@pytest.mark.parametrize("pages_per_block", [0, -1])
+def test_dense_entry_rejects_pages_per_block_below_one(pages_per_block):
+    """``pages_per_block`` is the JAX kernel's scheduling argument: any value
+    >= 1 gives the same function (the test above), one below 1 is refused."""
+    q, (kp, vp), _, table, lengths = _case(2, False)
+    with pytest.raises(ValueError, match="pages_per_block"):
+        tpa.paged_decode_attention_dense(*_torch((q, kp, vp, table, lengths)),
+                                         pages_per_block=pages_per_block)
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = dataclasses.replace(jl.tiny_config(vocab_size=96), dtype=jnp.float32)

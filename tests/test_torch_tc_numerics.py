@@ -1,0 +1,160 @@
+"""The tensor-core kernels' arithmetic, emulated on the CPU.
+
+Kernel A's bf16 path (``csrc/flash_attention.cu``) and the paged kernel's
+bf16 and int8 paths (``csrc/paged_decode.cu``) run only on the card, but
+their rounding can be reproduced here: bf16 operands, fp32 products per
+tile, the score scaled after the product (kernel A), an online softmax per
+64-key tile (per 32-row chunk of one page for the paged kernel) and the
+probability split into bf16 hi + lo before it meets V. The emulation lies within
+``KERNEL_TOL`` of the plain versions (``causal_attention``,
+``paged_decode_attention_xla``), and the same emulation with P rounded once
+to bf16 does not: that is why the kernels carry the split.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tts_max_tpu_torch.models.llama import _quantize_kv
+from tts_max_tpu_torch.ops.attention import KERNEL_TOL, NEG_INF, causal_attention
+from tts_max_tpu_torch.ops.paged_attention import paged_decode_attention_xla
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor, eq: str, split: bool) -> torch.Tensor:
+    """P . V as the tensor cores take it: bf16(p) . V, plus bf16(p - bf16(p)) . V
+    with the split, all sums in fp32."""
+    hi = p.bfloat16().float()
+    out = torch.einsum(eq, hi, v)
+    if split:
+        out = out + torch.einsum(eq, (p - hi).bfloat16().float(), v)
+    return out
+
+
+def emulate_kernel_a(q, k, v, *, causal=True, kv_len=None, split=True, bk=64):
+    """Kernel A's bf16 arithmetic: q, k, v [B, S, H, D] bf16 -> bf16."""
+    b, s, hq, d = q.shape
+    n_rep = hq // k.shape[2]
+    kv_len = s if kv_len is None else kv_len
+    qf = q.float()
+    kf, vf = (x.repeat_interleave(n_rep, 2).float() for x in (k, v))
+    m = torch.full((b, hq, s), NEG_INF)
+    l = torch.zeros(b, hq, s)
+    acc = torch.zeros(b, hq, s, d)
+    pos = torch.arange(s)
+    for k0 in range(0, kv_len, bk):
+        kp = pos[k0:k0 + bk]
+        sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + bk]) * d ** -0.5
+        ok = (kp < kv_len)[None, :]
+        if causal:
+            ok = ok & (kp[None, :] <= pos[:, None])
+        sc = sc.masked_fill(~ok, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        m = m_new
+        acc = alpha[..., None] * acc + _pv(p, vf[:, k0:k0 + bk], "bhqk,bkhd->bhqd", split)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def emulate_paged(q, k_pool, v_pool, table, lengths, *, split=True):
+    """The paged kernel's bf16/int8 arithmetic, one sequence and chunk at a
+    time: q [B, Hq, D] bf16; pools [N, bs, Hkv, D] bf16 or int8 dicts."""
+    quant = isinstance(k_pool, dict)
+    kq, ks = (k_pool["q"], k_pool["scale"]) if quant else (k_pool, None)
+    vq, vs = (v_pool["q"], v_pool["scale"]) if quant else (v_pool, None)
+    b, hq, d = q.shape
+    n, bs, hkv, _ = kq.shape
+    chunk = 32
+    qg = (q.float() * d ** -0.5).bfloat16().float().reshape(b, hkv, hq // hkv, d)
+    out = torch.zeros(b, hkv, hq // hkv, d)
+    for i in range(b):
+        length = int(lengths[i])
+        m = torch.full((hkv, hq // hkv), NEG_INF)
+        l = torch.zeros(hkv, hq // hkv)
+        acc = torch.zeros(hkv, hq // hkv, d)
+        for page in range(-(-length // bs)):
+            blk = int(table[i, page].clamp(0, n - 1))
+            for r0 in range(0, bs, chunk):
+                j = torch.arange(r0, r0 + chunk)
+                ok = (j < bs) & (page * bs + j < length)
+                rows = torch.where(ok, j, 0)
+                kt = torch.where(ok[:, None, None], kq[blk, rows].float(), 0.0)
+                vt = torch.where(ok[:, None, None], vq[blk, rows].float(), 0.0)
+                sc = torch.einsum("grd,kgd->grk", qg[i], kt)
+                if quant:
+                    sc = sc * torch.where(ok[:, None], ks[blk, rows], 0.0).T[:, None, :]
+                sc = torch.where(ok, sc, NEG_INF)
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+                l = alpha * l + p.sum(-1)
+                m = m_new
+                if quant:
+                    p = torch.where(ok, p * torch.where(ok[:, None], vs[blk, rows], 0.0)
+                                    .T[:, None, :], 0.0)
+                acc = alpha[..., None] * acc + _pv(p, vt, "grk,kgd->grd", split)
+        out[i] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / (atol + rtol |ref|): at most 1 within KERNEL_TOL."""
+    rtol, atol = KERNEL_TOL[torch.bfloat16]
+    err = (out.float() - ref.float()).abs()
+    return float((err / (atol + rtol * ref.float().abs())).max())
+
+
+def _bf16(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("s,hq,hkv,causal,kv_len", [
+    (1024, 2, 1, True, None),
+    (1024, 2, 2, True, None),
+    (1000, 2, 1, False, 900),
+])
+def test_kernel_a_split_within_tol_bf16_p_outside(s, hq, hkv, causal, kv_len):
+    rng = np.random.default_rng(s + hq + hkv)
+    q, k, v = (_bf16(rng, 1, s, h, 64) for h in (hq, hkv, hkv))
+    ref = causal_attention(q, k, v, causal=causal, kv_len=kv_len)
+    split = emulate_kernel_a(q, k, v, causal=causal, kv_len=kv_len)
+    once = emulate_kernel_a(q, k, v, causal=causal, kv_len=kv_len, split=False)
+    assert torch.isfinite(split.float()).all()
+    assert _ratio(split, ref) <= 1.0
+    assert _ratio(once, ref) > 1.0
+
+
+def _paged_inputs(rng, b, lens, quant, bs, p):
+    """q [b, 32, 64] and pools [n, bs, 8, 64] with each sequence's pages
+    shuffled through the pool, NaN in the sink block 0, in unowned pages and
+    past every length (in the scales for int8), as chip_smoke plants them."""
+    n = b * p + 12
+    q = _bf16(rng, b, 32, 64)
+    k, v = _bf16(rng, n, bs, 8, 64), _bf16(rng, n, bs, 8, 64)
+    table = torch.from_numpy(rng.permutation(n - 1)[:b * p].reshape(b, p) + 1).int()
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    live = torch.zeros(n, bs, dtype=torch.bool)
+    rows = torch.arange(p * bs)
+    for i in range(b):
+        ok = rows < lengths[i]
+        live[table[i].repeat_interleave(bs)[ok], (rows % bs)[ok]] = True
+    if quant:
+        k, v = _quantize_kv(k), _quantize_kv(v)
+    for c in (k, v):
+        (c["scale"] if quant else c)[~live] = float("nan")
+    return q, k, v, table, lengths
+
+
+@pytest.mark.parametrize("quant,bs", [(False, 64), (True, 64), (False, 48)])
+def test_paged_split_within_tol_bf16_p_outside(quant, bs):
+    rng = np.random.default_rng(7 + bs + quant)
+    q, k, v, table, lengths = _paged_inputs(rng, 4, [300, 1900, 777, 1024], quant, bs,
+                                            -(-1900 // bs))
+    ref = paged_decode_attention_xla(q, k, v, table, lengths)
+    split = emulate_paged(q, k, v, table, lengths)
+    once = emulate_paged(q, k, v, table, lengths, split=False)
+    assert torch.isfinite(split.float()).all()
+    assert _ratio(split, ref) <= 1.0
+    assert _ratio(once, ref) > 1.0

@@ -9,21 +9,43 @@
 // h / (Hq/Hkv): GQA is native, K/V are never repeated in memory.
 //
 // What bounds it on the H100: operations. A causal prefill does about
-// 2 * S^2 * Hq * D multiply-adds (4.3 GFLOP at S=1024, Hq=32, D=64) against
+// 2 * S^2 * Hq * D multiply-adds (6.7 GFLOP at S=1280, Hq=32, D=64) against
 // 3 * S * H * D * 2 bytes of input, some 500 operations per byte, well above
-// the card's ~295 operations per byte of bf16 balance.
+// the card's ~295 operations per byte of bf16 balance. So the products
+// belong on the tensor cores, and what decides the time at these sizes (a
+// few hundred blocks of 64 rows) is keeping loads in flight behind them.
 //
-// What the design does about it: nothing clever yet; it is the simple,
-// right first version. One block of 256 threads per (q-tile of 64 rows,
-// query head, batch). It stages the scaled Q tile and each 64-row K and V
-// tile in shared memory as fp32, computes the 64x64 score tile with a 4x4
-// register micro-tile per thread on the CUDA cores, keeps the running max,
-// sum and a 4 x D/16 slice of the output accumulator in fp32 registers
-// (online softmax), and skips every K tile that lies wholly beyond the causal
-// diagonal or kv_len. It does not use the tensor cores (no mma/wgmma) and so
-// runs at CUDA-core fp32 rates; moving the two products onto wgmma is the
-// obvious next step. Masked scores use -1e30 as the Pallas kernel does.
-#include "common.cuh"
+// bf16 (flash_fwd_tc, FlashAttention-2's shape written for this card with
+// mma.sync and cp.async, helpers in mma.cuh): one block of 4 warps per
+// (64-row q tile, query head, batch), the heaviest causal tiles scheduled
+// first. Each warp owns 16 query rows; its Q fragments are loaded once and
+// stay in registers. 64-row K and V tiles of the block's kv head come
+// through a two-stage cp.async ring (tile j+1 in flight while tile j is
+// computed; one __syncthreads per tile publishes it and frees the stage the
+// next copy reuses), rows padded by 16 bytes against ldmatrix bank
+// conflicts, rows past S zero-filled by the copy. S = Q K^T is an mma with
+// K read by ldmatrix (K row-major is K^T column-major); the fp32 score is
+// then multiplied by the scale (the plain version scales q in fp32 before
+// the product: the two differ by fp32 rounding, and at D = 64 the scale
+// 0.125 is exact) and by log2(e), so that the softmax's exponentials are
+// single SFU ex2 instructions. Only tiles that cross the causal diagonal or
+// kv_len compare positions. The online softmax keeps each row's max and sum
+// in fp32, reduced over the 4 lanes of a C-fragment row with two shuffles. P
+// goes from the C fragments straight into A fragments as a hi/lo pair of
+// bf16 (hi = bf16(p), lo = bf16(p - hi)), each multiplied with V (read by
+// ldmatrix.trans) into one fp32 accumulator: P rounded once to bf16 errs by
+// up to 2^-8 |p|, which near-zero outputs of random V do not tolerate
+// (tests/test_torch_tc_numerics.py); the pair errs by ~2^-16. Rows in
+// [kv_len, S) are not filled: the zero-padded input gives p = 0 against
+// finite V, as in the Pallas kernel (a NaN there would reach the output).
+//
+// fp32 (flash_fwd_kernel) stays on the CUDA cores: the tensor cores would
+// round fp32 inputs, and the fp32 small-model check runs this path. One
+// block of 256 threads per (q tile, head, batch) stages the scaled Q tile
+// and each K and V tile in shared memory as fp32 and computes both
+// products as 4x4 register micro-tiles of fmaf. Masked scores use -1e30 as
+// the Pallas kernel does.
+#include "mma.cuh"
 
 namespace {
 
@@ -169,24 +191,220 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int S, int Hq, int Hkv, int kv_len, int causal, float scale,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                       int Hq, int Hkv, int kv_len, int causal, float scale,
+                       cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, Hq, Hkv, kv_len, causal, scale);
+  flash_fwd_kernel<float, D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv, kv_len, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+// --- bf16: tensor cores -------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+namespace tc = ttsk::mma;
+
+constexpr int TC_WARPS = BQ / 16;  // each warp owns one m16 tile of the block's rows
+constexpr int TC_NT = TC_WARPS * 32;
+
+template <int D>
+struct TcConfig {
+  static constexpr int LD = D + 8;  // padded row: 8 ldmatrix rows hit 8 bank groups
+  static constexpr int SMEM = (BQ + 4 * BK) * LD * static_cast<int>(sizeof(bf16));
+};
+
+// The explicit floor of one block per SM lets ptxas keep 156 registers at
+// D = 64 (221 at D = 128); left to its default it takes 135 (182) and the
+// kernel runs 6-11% slower on the H100 (PERF.md, section 6).
+template <int D>
+__global__ void __launch_bounds__(TC_NT, 1)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o, int S, int Hq, int Hkv,
+             int kv_len, int causal, float scale) {
+  constexpr int LD = TcConfig<D>::LD;
+  constexpr int CH = D / 8;  // 16-byte pieces per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* Ks = Qs + BQ * LD;                       // [2][BK][LD]
+  bf16* Vs = Ks + 2 * BK * LD;                   // [2][BK][LD]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the heaviest causal tiles first
+  const int q0 = qt * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+
+  const long q_stride = static_cast<long>(Hq) * D;
+  const long kv_stride = static_cast<long>(Hkv) * D;
+  const bf16* qb = q + static_cast<long>(b) * S * q_stride + static_cast<long>(h) * D;
+  const bf16* kb = k + static_cast<long>(b) * S * kv_stride + static_cast<long>(hk) * D;
+  const bf16* vb = v + static_cast<long>(b) * S * kv_stride + static_cast<long>(hk) * D;
+  bf16* ob = o + static_cast<long>(b) * S * q_stride + static_cast<long>(h) * D;
+
+  for (int i = tid; i < BQ * CH; i += TC_NT) {
+    const int r = i / CH, c = (i % CH) * 8, s = q0 + r;
+    tc::cp_async16(&Qs[r * LD + c], qb + min(s, S - 1) * q_stride + c, s < S);
+  }
+  const auto load_kv = [&](int kt, int st) {
+    for (int i = tid; i < BK * CH; i += TC_NT) {
+      const int r = i / CH, c = (i % CH) * 8, s = kt * BK + r;
+      const long off = min(s, S - 1) * kv_stride + c;
+      tc::cp_async16(&Ks[(st * BK + r) * LD + c], kb + off, s < S);
+      tc::cp_async16(&Vs[(st * BK + r) * LD + c], vb + off, s < S);
+    }
+  };
+
+  int n_tiles = (kv_len + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  load_kv(0, 0);
+  tc::cp_async_commit();
+
+  const int wq0 = q0 + warp * 16;  // the warp's first query row
+  uint32_t qf[D / 16][4];
+  float m[2] = {ttsk::NEG_INF, ttsk::NEG_INF};  // rows g and g + 8
+  float l[2] = {0.f, 0.f};                      // this lane's part of the rows' sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    tc::cp_async_wait<0>();
+    __syncthreads();  // tile kt (and Q) landed for all; tile kt-1's stage is free
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        tc::ldmatrix_x4(qf[kk], &Qs[(warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8]);
+    }
+    if (kt + 1 < n_tiles) {
+      load_kv(kt + 1, (kt + 1) & 1);
+      tc::cp_async_commit();
+    }
+    const int k0 = kt * BK;
+    const bf16* Kt = Ks + (kt & 1) * BK * LD;
+    const bf16* Vt = Vs + (kt & 1) * BK * LD;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < BK / 16; ++n2) {
+        uint32_t r[4];
+        tc::ldmatrix_x4(r, &Kt[(n2 * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                               ((lane / 8) % 2) * 8]);
+        tc::mma_bf16(s[2 * n2], qf[kk], r[0], r[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qf[kk], r[2], r[3]);
+      }
+    }
+
+    const bool edge = k0 + BK > kv_len || (causal && k0 + BK - 1 > wq0);
+    const float scale2 = scale * tc::LOG2E;  // scores, max and exponent in base 2
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale2;
+        if (edge) {
+          const int kp = k0 + n * 8 + t4 * 2 + (e & 1);
+          const int qp = wq0 + g + (e >> 1) * 8;
+          x = (kp < kv_len && (!causal || kp <= qp)) ? x : ttsk::NEG_INF;
+        }
+        s[n][e] = x;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = tc::exp2_fast(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[n][e] = tc::exp2_fast(s[n][e] - mx);
+          sum += s[n][e];
+        }
+      l[i] = alpha * l[i] + sum;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * i] *= alpha;
+        acc[n][2 * i + 1] *= alpha;
+      }
+    }
+
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t hi[4], lo[4];  // the C fragments of keys 16kc.. as A fragments
+      tc::split_bf16(s[2 * kc][0], s[2 * kc][1], hi[0], lo[0]);
+      tc::split_bf16(s[2 * kc][2], s[2 * kc][3], hi[1], lo[1]);
+      tc::split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], hi[2], lo[2]);
+      tc::split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t r[4];
+        tc::ldmatrix_x4_trans(r, &Vt[(kc * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                                     n2 * 16 + (lane / 16) * 8]);
+        tc::mma_bf16(acc[2 * n2], hi, r[0], r[1]);
+        tc::mma_bf16(acc[2 * n2 + 1], hi, r[2], r[3]);
+        tc::mma_bf16(acc[2 * n2], lo, r[0], r[1]);
+        tc::mma_bf16(acc[2 * n2 + 1], lo, r[2], r[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int qp = wq0 + g + 8 * i;
+    if (qp >= S) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(&ob[qp * q_stride + n * 8 + t4 * 2]) =
+          tc::pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S,
+                      int Hq, int Hkv, int kv_len, int causal, float scale,
+                      cudaStream_t stream) {
+  constexpr int smem = TcConfig<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + BQ - 1) / BQ, Hq, B);
+  flash_fwd_tc<D><<<grid, TC_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), S, Hq, Hkv, kv_len, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). The bf16 path
+// needs 16-byte aligned q, k, v (the wrapper checks). Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int S, int Hq, int Hkv, int D,
                                    int kv_len, int causal, float scale, int dtype,
@@ -195,12 +413,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (Hkv <= 0 || Hq % Hkv != 0 || kv_len < 1 || kv_len > S)
     return cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_f32<64>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_f32<128>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_tc<64>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_tc<128>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
   return cudaErrorInvalidValue;
 }

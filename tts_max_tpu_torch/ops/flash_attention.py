@@ -5,7 +5,8 @@ Replaces the JAX package's Pallas ``flash_attention``
 launches the kernel; on a CPU tensor it runs the plain version,
 ``ops.attention.causal_attention``, which has the kernel's arithmetic. There
 is no fallback from one to the other: a CUDA input the kernel does not take
-raises.
+raises. bf16 inputs run on the tensor cores (``mma.sync``, ``cp.async``),
+fp32 inputs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ def flash_attention(
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start 16-byte aligned (16-byte copies)")
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.flash_attention_fwd(

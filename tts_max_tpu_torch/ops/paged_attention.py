@@ -17,12 +17,15 @@ serves all three entry points, which keep the JAX signatures and each count
 their own launches. On a CPU tensor each runs the plain version,
 ``paged_decode_attention_xla`` (gather through the table, then
 ``ops.attention.decode_attention``); on a CUDA tensor each launches the
-kernel or raises.
+kernel or raises. With bf16 queries (bf16 or int8 pools) the kernel runs on
+the tensor cores and needs 16-byte aligned pools; fp32 queries run on the
+CUDA cores.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import operator
 
 import torch
@@ -60,23 +63,25 @@ def paged_decode_attention_dense(q, k_pool, v_pool, table, lengths, *, layer=Non
                                  pages_per_block: int = 4, alias_caches: bool = False):
     """Entry point of kernel D. ``layer``: the pools are the stacked
     ``[L, N, bs, Hkv, D]`` caches and layer ``layer`` is read, with no copy.
-    ``pages_per_block`` is the least number of pages one block of the
-    kernel walks. ``alias_caches=True`` returns ``(out, k_pool, v_pool)``:
-    the pools are returned as they came (PyTorch needs no in/out alias to
-    keep a layer loop from copying them)."""
-    out = _paged(paged_decode_attention_dense, q, k_pool, v_pool, table, lengths,
-                 layer, pages_per_block)
+    ``pages_per_block`` (>= 1) is the JAX kernel's TPU scheduling argument;
+    it has no effect here, where the split size comes from the SM count,
+    and the result is the same function either way. ``alias_caches=True``
+    returns ``(out, k_pool, v_pool)``: the pools are returned as they came
+    (PyTorch needs no in/out alias to keep a layer loop from copying them)."""
+    if operator.index(pages_per_block) < 1:
+        raise ValueError(f"pages_per_block {pages_per_block} < 1")
+    out = _paged(paged_decode_attention_dense, q, k_pool, v_pool, table, lengths, layer)
     return (out, k_pool, v_pool) if alias_caches else out
 
 
 def paged_decode_attention_dma(q, k_pool, v_pool, table, lengths):
     """Entry point of kernel E (same function as D)."""
-    return _paged(paged_decode_attention_dma, q, k_pool, v_pool, table, lengths, None, 1)
+    return _paged(paged_decode_attention_dma, q, k_pool, v_pool, table, lengths, None)
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, lengths):
     """Entry point of kernel F (same function as D)."""
-    return _paged(paged_decode_attention, q, k_pool, v_pool, table, lengths, None, 1)
+    return _paged(paged_decode_attention, q, k_pool, v_pool, table, lengths, None)
 
 
 paged_decode_attention_dense.launches = 0
@@ -84,7 +89,7 @@ paged_decode_attention_dma.launches = 0
 paged_decode_attention.launches = 0
 
 
-def _paged(entry, q, k_pool, v_pool, table, lengths, layer, min_pages):
+def _paged(entry, q, k_pool, v_pool, table, lengths, layer):
     quant = isinstance(k_pool, dict)
     if quant != isinstance(v_pool, dict):
         raise ValueError("k and v pools must both be int8 dicts or both not")
@@ -130,8 +135,12 @@ def _paged(entry, q, k_pool, v_pool, table, lengths, layer, min_pages):
         raise ValueError(f"table {table.dtype} / lengths {lengths.dtype}, need int32")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("q, pools, scales, table and lengths must be contiguous")
+    if q.dtype == torch.bfloat16 and (kq.data_ptr() % 16 or vq.data_ptr() % 16
+                                      or q.data_ptr() % 4):
+        raise ValueError("bf16 q must start 4-byte and the pools 16-byte aligned "
+                         "(the tensor-core kernel copies 16-byte pieces)")
 
-    pages = _pages_per_split(b, hkv, p, max(1, min(min_pages, p)), q.device)
+    pages = _pages_per_split(b, hkv, p, q.device)
     n_split = -(-p // pages)
     n_rep = hq // hkv
     part_acc = torch.empty(b, hkv, n_split, n_rep, d, dtype=torch.float32,
@@ -154,14 +163,17 @@ def _paged(entry, q, k_pool, v_pool, table, lengths, layer, min_pages):
     return out
 
 
-def _pages_per_split(b: int, hkv: int, p: int, min_pages: int,
-                     device: torch.device) -> int:
+def _pages_per_split(b: int, hkv: int, p: int, device: torch.device) -> int:
     """Whole pages per split of the table's width: about two blocks per SM
-    in all, each split at least ``min_pages`` pages long (kernel B's
-    ``_num_splits`` over pages instead of rows)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, -(-2 * sms // (b * hkv)))
-    return max(min_pages, -(-p // want))
+    in all (kernel B's ``_num_splits`` over pages instead of rows)."""
+    want = max(1, -(-2 * _sm_count(device.index) // (b * hkv)))
+    return -(-p // want)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (a tensor's device always has one), read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
