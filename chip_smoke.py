@@ -103,6 +103,19 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def sass_counts(lib) -> str:
+    """How many lines of a built library's SASS (cuobjdump, over all its
+    kernels) hold tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM)
+    instructions, as ``grep -c`` counts them."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return "not measured (no cuobjdump)"
+    lines = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
+                           text=True, timeout=120).stdout.splitlines()
+    return " ".join(f"{op}={sum(op in line for line in lines)}"
+                    for op in ("HMMA", "LDGSTS", "LDSM"))
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -138,10 +151,14 @@ def attention_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None,
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-# The earlier kernels' times at the same shapes (the CUDA-core kernel A and the
-# paged kernel on decode_split.cuh; PERF.md section 6, one H100 80GB HBM3 at
-# 700 W), printed in the per-case lines beside this run's: (kernel, case) -> ms
+# The earlier kernels' times at the same shapes (the CUDA-core kernels A, B,
+# C and the paged kernel on decode_split.cuh; PERF.md section 6, one H100
+# 80GB HBM3 at 700 W), printed in the per-case lines beside this run's:
+# (kernel, case) -> ms
 PREV_MS = {
+    ("B", "e3"): 0.1137, ("B", "main"): 0.0288,
+    ("C", "main (e3)"): 0.0863, ("C", "B=1 request c"): 0.0847, ("C", "fp32"): 0.1636,
+    ("C", "D=128"): 0.2390,
     ("A", "S=137"): 0.0316, ("A", "S=1024"): 0.3187, ("A", "S=2048"): 1.0047,
     ("A", "D=128 S=1024"): 0.5883, ("A", "fp32 S=1024"): 0.3358, ("A", "main"): 0.4632,
     ("D", "main"): 0.1400, ("E", "main"): 0.1399, ("F", "main"): 0.1403,
@@ -215,6 +232,9 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
 
 # --- kernel B -----------------------------------------------------------------
 
+# the contiguous engine's pool mid-decode (e3: 8 slots, max_len 2048)
+E3_LENS = [431, 431, 431, 431, 496, 496, 1351, 1351]
+
 
 def decode_bound_ms(q, kq, lengths, quant: bool) -> tuple[float, str]:
     """Least time for decode attention: bytes of q, the live K and V rows
@@ -230,59 +250,77 @@ def decode_bound_ms(q, kq, lengths, quant: bool) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _decode_inputs(gen, b, t, d, lengths, quant, nan_tail):
-    from tts_max_tpu_torch.models.llama import _quantize_kv
+def _decode_inputs(gen, b, t, d, lengths, quant, nan_tail, hq=32, hkv=8,
+                   dtype=torch.bfloat16, stacked=False):
+    """q [b, hq, d] and caches [b, t, hkv, d] in ``dtype`` (or int8 with
+    scales), NaN past every length if ``nan_tail``; with ``stacked`` the
+    caches are layer 1 of [2, b, t, hkv, d] (a view, as ``llama.decode_step``
+    passes ``cache[layer]``)."""
+    from tts_max_tpu_torch.models.llama import _layer_cache, _quantize_kv
 
-    hq, hkv = 32, 8
-    q = torch.randn(b, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
-    kv = [torch.randn(b, t, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dtype)
+    layers = (2,) if stacked else ()
+    kv = [torch.randn(*layers, b, t, hkv, d, generator=gen, device="cuda").to(dtype)
           for _ in range(2)]
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     if quant:
         kv = [_quantize_kv(x) for x in kv]
     if nan_tail:
         dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        idx = (slice(None), dead) if stacked else (dead,)
         for c in kv:
-            if quant:
-                c["scale"][dead] = float("nan")
-            else:
-                c[dead] = float("nan")
+            (c["scale"] if quant else c)[idx] = float("nan")
+    if stacked:
+        kv = [_layer_cache(c, 1) for c in kv]
     return q, kv[0], kv[1], lens
 
 
+# Edge cases of the contiguous decode kernels (B and C), checked against the
+# plain version, not timed: T = 200 (not a multiple of 32), lengths at chunk
+# edges (0 gives zeros in both plain versions), n_rep 1, 4 and 8, D 64 and
+# 128, NaN past every length, a stacked cache's layer view
+EDGE_LENS = [0, 1, 31, 32, 33, 200, 137]
+EDGE_CASES = [(hq, d) for hq in (8, 32, 64) for d in (64, 128)]
+
+
+def _check_zeros(out, lens, what) -> None:
+    if 0 in lens and not bool((out[lens.index(0)] == 0).all()):
+        raise AssertionError(f"{what}: a length of 0 did not give zeros")
+
+
 def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
+    """Kernel B against its plain version, timed beside a masked SDPA (bf16)
+    and beside the earlier CUDA-core kernel's time (``PREV_MS``): batch 1
+    and 8, T 256 and 2048, bf16 and int8, ragged lengths with NaN past them
+    at D 64 and 128, the contiguous engine's shape (e3) and the main path's
+    (batch 1 at request (c)'s length, the ``kernels`` line); then the edge
+    cases (``EDGE_CASES``) untimed."""
     from tts_max_tpu_torch.ops import attention
     from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
-    from tts_max_tpu_torch.ops.paged_attention import (
-        paged_decode_attention,
-        paged_decode_attention_dense,
-        paged_decode_attention_dma,
-    )
 
     log("kernel B: flash_decode_attention vs ops.attention.decode_attention "
         "(plain); library = F.scaled_dot_product_attention with a length mask "
-        "(bf16 cache only)")
+        "(bf16 cache only); prev = the CUDA-core kernel")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = []
+    cases = []  # (label, B, T, D, lengths, int8, NaN past the lengths)
     for b in (1, 8):
         for t in (256, 2048):
             lens = [t] if b == 1 else [1, t, 7, t // 2, t - 1, 100, 33, t // 3]
             for quant in (False, True):
-                cases.append((b, t, 64, lens, quant, False))
+                cases.append((f"B={b} T={t}", b, t, 64, lens, quant, False))
     ragged = [1, 2048, 7, 1024, 2047, 100, 33, 682]
     for d in (64, 128):  # 128: Llama-3.1-8B's head_dim
         for quant in (False, True):
-            cases.append((8, 2048, d, ragged, quant, True))
+            cases.append((f"D={d} ragged", 8, 2048, d, ragged, quant, True))
     # the contiguous engine's shape (e3: 8 slots, max_len 2048, mid-decode)
-    cases.append((8, 2048, 64, [431, 431, 431, 431, 496, 496, 1351, 1351], False, False))
-    cases.append((1, main_t, 64, [main_len], False, False))  # the main path's shape
+    cases.append(("e3", 8, 2048, 64, E3_LENS, False, False))
+    cases.append(("main", 1, main_t, 64, [main_len], False, False))  # the main path's shape
     worst, main = 0.0, None
-    for (b, t, d, lens, quant, nan_tail) in cases:
+    for (label, b, t, d, lens, quant, nan_tail) in cases:
         q, kc, vc, lengths = _decode_inputs(gen, b, t, d, lens, quant, nan_tail)
         out = flash_decode_attention(q, kc, vc, lengths)
         ref = attention.decode_attention(q, kc, vc, lengths)
-        err, tol = check_close(out, ref, f"kernel B B={b} T={t} D={d} quant={quant} "
-                                         f"nan_tail={nan_tail}")
+        err, tol = check_close(out, ref, f"kernel B {label} quant={quant}")
         worst = max(worst, err)
         ms = timer.ms(lambda: flash_decode_attention(q, kc, vc, lengths))
         plain_ms = timer.ms(lambda: attention.decode_attention(q, kc, vc, lengths))
@@ -295,33 +333,47 @@ def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
                 qs, ks, vs, attn_mask=mask, enable_gqa=True))
         bound, by = decode_bound_ms(q, kc["q"] if quant else kc, lengths, quant)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-        log(f"  B={b} T={t:5d} D={d:3d} {'int8' if quant else 'bf16'} "
+        prev = _prev("B", label) if not quant else "n/a"
+        log(f"  {label:14s} B={b} T={t:5d} D={d:3d} {'int8' if quant else 'bf16'} "
             f"{'NaN-tail ' if nan_tail else ''}max_abs_err={err:.3e} "
-            f"({tol})  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"({tol})  ms={ms:.4f} prev_ms={prev} plain_ms={plain_ms:.4f} "
             f"library_ms={lib} bound_ms={bound:.5f} ({by})")
-        main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                    bound_by=by)
+        if label == "main":
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                        bound_by=by)
+    n_edge = 0
+    for hq, d in EDGE_CASES:
+        for quant in (False, True):
+            q, kc, vc, lengths = _decode_inputs(gen, len(EDGE_LENS), 200, d, EDGE_LENS,
+                                                quant, True, hq=hq, stacked=True)
+            out = flash_decode_attention(q, kc, vc, lengths)
+            what = f"kernel B edge Hq={hq} D={d} quant={quant}"
+            err, _ = check_close(out, attention.decode_attention(q, kc, vc, lengths), what)
+            _check_zeros(out, EDGE_LENS, what)
+            worst = max(worst, err)
+            n_edge += 1
+    log(f"  {n_edge} edge cases (T=200, lengths {EDGE_LENS}, n_rep 1/4/8, D 64/128, "
+        "bf16 and int8, NaN past the lengths, layer 1 of a stacked cache): "
+        "within tolerance")
     return dict(max_abs_err=worst, **main)
 
 
 # --- kernel C -----------------------------------------------------------------
 
-# the contiguous engine's pool mid-decode (e3: 8 slots, max_len 2048)
-E3_LENS = [431, 431, 431, 431, 496, 496, 1351, 1351]
-
-
 def check_kernel_c(timer: Timer, main_t: int, main_len: int) -> dict:
     """Kernel C against its plain version at e3's shape (the main shape,
-    timed beside kernel B and a masked SDPA on the same inputs) and at the
-    edges: batch 1 at request (c)'s length, fp32, D = 128, n_rep 1, 4 and 8,
-    T = 200, lengths 0, 1 and T, NaN past every length."""
+    timed beside kernel B and a masked SDPA on the same inputs, and beside
+    the earlier CUDA-core kernel C's time, ``PREV_MS``) and at the edges:
+    batch 1 at request (c)'s length, fp32, D = 128, n_rep 1, 4 and 8, T =
+    200, lengths 0, 1 and T, NaN past every length; then ``EDGE_CASES`` in
+    bf16 and fp32, untimed."""
     from tts_max_tpu_torch.ops.attention import ragged_decode_attention_plain as plain
     from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
     from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
     log("kernel C: ragged_decode_attention vs ops.attention.ragged_decode_attention_plain "
         "(plain); library = F.scaled_dot_product_attention with a length mask; kernel B "
-        "(flash_decode_attention) timed on the same inputs")
+        "(flash_decode_attention) timed on the same inputs; prev = the CUDA-core kernel C")
     gen = torch.Generator(device="cuda").manual_seed(7)
     edge = [0, 1, 2048, 129, 2047, 7, 1024, 300]
     cases = [  # (label, B, T, Hq, Hkv, D, dtype, lengths, NaN past the lengths)
@@ -346,8 +398,7 @@ def check_kernel_c(timer: Timer, main_t: int, main_len: int) -> dict:
         out = ragged_decode_attention(q, kc, vc, lengths)
         ref = plain(q, kc, vc, lengths)
         err, tol = check_close(out, ref, f"kernel C {label}")
-        if 0 in lens and not bool((out[lens.index(0)] == 0).all()):
-            raise AssertionError(f"kernel C {label}: a length of 0 did not give zeros")
+        _check_zeros(out, lens, f"kernel C {label}")
         worst = max(worst, err)
         ms = timer.ms(lambda: ragged_decode_attention(q, kc, vc, lengths))
         plain_ms = timer.ms(lambda: plain(q, kc, vc, lengths), iters=5)
@@ -364,7 +415,22 @@ def check_kernel_c(timer: Timer, main_t: int, main_len: int) -> dict:
             extra = f" kernel_B_ms={b_ms:.4f} library_ms={lib_ms:.4f}"
         log(f"  {label:24s} B={b} T={t:5d} Hq={hq:2d} Hkv={hkv} D={d:3d} "
             f"{str(dtype):14s} max_abs_err={err:.3e} ({tol})  ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}{extra} bound_ms={bound:.5f} ({by})")
+            f"prev_ms={_prev('C', label)} plain_ms={plain_ms:.4f}{extra} "
+            f"bound_ms={bound:.5f} ({by})")
+    n_edge = 0
+    for hq, d in EDGE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc, lengths = _decode_inputs(gen, len(EDGE_LENS), 200, d, EDGE_LENS,
+                                                False, True, hq=hq, dtype=dtype, stacked=True)
+            out = ragged_decode_attention(q, kc, vc, lengths)
+            what = f"kernel C edge Hq={hq} D={d} {dtype}"
+            err, _ = check_close(out, plain(q, kc, vc, lengths), what)
+            _check_zeros(out, EDGE_LENS, what)
+            worst = max(worst, err)
+            n_edge += 1
+    log(f"  {n_edge} edge cases (T=200, lengths {EDGE_LENS}, n_rep 1/4/8, D 64/128, "
+        "bf16 and fp32, NaN past the lengths, layer 1 of a stacked cache): "
+        "within tolerance, zeros at length 0")
     return dict(max_abs_err=worst, **main)
 
 
@@ -1366,9 +1432,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
             # the tensor-core kernels are sized to fit their registers
-            if (name in ("flash_attention", "paged_decode") and "spill" in line
+            if (name != "act1d" and "spill" in line
                     and " 0 bytes spill stores, 0 bytes spill loads" not in line):
                 raise AssertionError(f"ptxas {name} spills: {line.strip()}")
+        log(f"  SASS {name}: {sass_counts(cuda_build.library_path(name))}")
 
     tok = tokenization.build_byte_tokenizer()
     sv = tokenization.speech_vocab(tok)

@@ -39,22 +39,72 @@ def test_flash_attention_kernel_matches_plain(dtype, d):
         torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
-def test_flash_decode_kernel_matches_plain(d, quant):
-    _cuda()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(3, 32, d, generator=g, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(3, 300, 8, d, generator=g, device="cuda").to(torch.bfloat16)
+def _contiguous_case(g, b, t, hq, hkv, d, dtype, lens, quant=False):
+    """q [b, hq, d] and layer 1 of stacked caches [2, b, t, hkv, d] (a view,
+    as ``llama.decode_step`` passes ``cache[layer]``), bf16 or fp32, or int8
+    with scales; NaN in every row past a length, in both layers (in the
+    scales for int8)."""
+    from tts_max_tpu_torch.models.llama import _layer_cache
+
+    q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(2, b, t, hkv, d, generator=g, device="cuda").to(dtype)
             for _ in range(2))
-    lengths = torch.tensor([1, 300, 77], dtype=torch.int32, device="cuda")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     if quant:
         k, v = _quantize_kv(k), _quantize_kv(v)
+    dead = torch.arange(t, device="cuda")[None, :] >= lengths[:, None]
+    for c in (k, v):
+        (c["scale"] if quant else c)[:, dead] = float("nan")
+    return q, _layer_cache(k, 1), _layer_cache(v, 1), lengths
+
+
+# (B, T, lengths): T = 200 is not a multiple of 32; lengths 1, 31, 32, 33
+# and T sit around chunk edges (0 gives zeros, in B's plain version too)
+_DECODE_LENGTHS = [(7, 200, [0, 1, 31, 32, 33, 200, 137]),
+                   (8, 2048, [431, 431, 431, 431, 496, 496, 1351, 1351]),
+                   (1, 1536, [1359])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,lens", _DECODE_LENGTHS)
+@pytest.mark.parametrize("hq", [8, 32, 64])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_kernel_matches_plain(d, quant, hq, b, t, lens):
+    """Kernel B (bf16 q over a bf16 or int8 cache: the tensor cores) against
+    its plain version: n_rep 1, 4 and 8 over 8 kv heads, D 64 and 128, a
+    stacked cache's layer view, NaN past every length."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, lengths = _contiguous_case(g, b, t, hq, 8, d, torch.bfloat16, lens, quant)
     out = flash_decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
     ref = decode_attention(q, k, v, lengths)
     rtol, atol = KERNEL_TOL[torch.bfloat16]
     torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    if 0 in lens:
+        assert (out[lens.index(0)] == 0).all()
+
+
+@pytest.mark.gpu
+def test_decode_kernels_raise_on_a_misaligned_bf16_cache():
+    """The tensor cores copy 16-byte pieces of each row: B and C raise on a
+    bf16 cache that does not start on a 16-byte boundary (no fallback)."""
+    _cuda()
+    from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
+
+    b, t, hkv, d = 2, 64, 8, 64
+    q = torch.zeros(b, 32, d, dtype=torch.bfloat16, device="cuda")
+    good = torch.zeros(b, t, hkv, d, dtype=torch.bfloat16, device="cuda")
+    bad = torch.zeros(b * t * hkv * d + 1, dtype=torch.bfloat16, device="cuda")[1:]
+    bad = bad.view(b, t, hkv, d)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    lengths = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    for fn in (flash_decode_attention, ragged_decode_attention):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q, bad, good, lengths)
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q, good, bad, lengths)
 
 
 @pytest.mark.gpu
@@ -120,28 +170,22 @@ def test_act1d_kernel_matches_plain(b, t, c):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,b,t,hq,hkv,d", [
-    (torch.bfloat16, 8, 2048, 32, 8, 64),   # the contiguous engine's pool
-    (torch.float32, 3, 200, 16, 2, 128),    # fp32, T not a multiple of 128, n_rep 8
-    (torch.bfloat16, 2, 300, 8, 8, 128),    # n_rep 1
-    (torch.bfloat16, 1, 1536, 32, 8, 64),   # batch 1
-])
-def test_ragged_decode_kernel_matches_plain(dtype, b, t, hq, hkv, d):
-    """Kernel C against its plain version on the card: lengths 0, 1, T and
-    ragged ones, NaN in every row past a length (the kernel never reads
-    them)."""
+@pytest.mark.parametrize("b,t,lens", _DECODE_LENGTHS)
+@pytest.mark.parametrize("hq", [8, 32, 64])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_decode_kernel_matches_plain(dtype, d, hq, b, t, lens):
+    """Kernel C against its plain version on the card (bf16 on the tensor
+    cores with q split hi/lo, fp32 on the CUDA cores): n_rep 1, 4 and 8 over
+    8 kv heads, D 64 and 128, a stacked cache's layer view, lengths 0, 1,
+    31, 32, 33 and T, NaN in every row past a length (the kernel never
+    reads them), exact zeros at length 0."""
     _cuda()
     from tts_max_tpu_torch.ops.attention import ragged_decode_attention_plain
     from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn(b, hq, d, generator=g, device="cuda").to(dtype)
-    k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dtype)
-            for _ in range(2))
-    lens = ([0, 1, t, 129, t - 1, 431, 1351, 7][:b] if b > 2 else [t, 1][:b])
-    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    dead = torch.arange(t, device="cuda")[None, :] >= lengths[:, None]
-    k[dead], v[dead] = float("nan"), float("nan")
+    q, k, v, lengths = _contiguous_case(g, b, t, hq, 8, d, dtype, lens)
     out = ragged_decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     ref = ragged_decode_attention_plain(q, k, v, lengths)

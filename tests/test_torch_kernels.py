@@ -143,7 +143,7 @@ def test_decode_plain_ignores_nan_beyond_length():
 @pytest.mark.parametrize("drop", [0, 64, 1357])
 def test_kernel_tol_rejects_a_dropped_row(drop):
     """At kernel B's main-path shape (Llama-3.2-1B, request (c) of
-    chip_smoke.py: T 1536, length 1358, splits of 64 rows) the tolerance a
+    chip_smoke.py: T 1536, length 1358, splits of 128 rows) the tolerance a
     kernel is held to accepts the plain output moved by one bf16 ulp either
     way and rejects it with one live row left out."""
     rng = np.random.default_rng(drop)

@@ -111,7 +111,10 @@ def test_ragged_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="int8"):
         ragged_decode_attention(q, int8, int8, lengths)
     with pytest.raises(ValueError, match="block_k"):
-        ragged_decode_attention(q, k, k, lengths, block_k=64)
+        ragged_decode_attention(q, k, k, lengths, block_k=0)
+    # block_k is the JAX kernel's TPU tile: any positive value is the same function
+    torch.testing.assert_close(ragged_decode_attention(q, k, k, lengths, block_k=64),
+                               ragged_decode_attention(q, k, k, lengths), rtol=0, atol=0)
     with pytest.raises(ValueError):
         ragged_decode_attention(q, k, k, torch.ones(3, dtype=torch.int32))
     with pytest.raises(ValueError):

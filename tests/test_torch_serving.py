@@ -315,6 +315,25 @@ def test_flags_the_port_does_not_take_fail_in_argparse(cli, flag, tmp_path):
     assert e.value.code == 2
 
 
+@pytest.mark.parametrize("cli", [serve_batch, serve_http])
+@pytest.mark.parametrize("flag,want", [([], 16), (["--steps_per_dispatch", "0"], 16),
+                                       (["--steps_per_dispatch", "8"], 8)])
+def test_steps_per_dispatch_zero_means_auto(served, cli, flag, want):
+    """``--steps_per_dispatch 0``, the reference CLIs' default, means auto:
+    16 steps per dispatch, as the reference without ``--prefill_ahead``; an
+    explicit K stays K."""
+    argv = ["--model_dir", served["model_dir"], "--no_warmup", *CPU, *flag]
+    if cli is serve_batch:
+        argv += ["--requests", "r.jsonl", "--out_dir", "wavs"]
+    args = cli.parse_args(argv)
+    assert args.steps_per_dispatch == (int(flag[1]) if flag else 0)
+    params, cfg, _ = serving_inference.load_model(args)
+    sv = ttok.speech_vocab(ttok.build_byte_tokenizer())
+    engine = serve_batch.build_engine(args, params, cfg, sv, prefix_cache=False)
+    assert isinstance(engine, te.InferenceEngine)
+    assert engine.steps_per_dispatch == want
+
+
 def test_clis_default_to_the_card(served, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")

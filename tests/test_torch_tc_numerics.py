@@ -1,14 +1,19 @@
 """The tensor-core kernels' arithmetic, emulated on the CPU.
 
-Kernel A's bf16 path (``csrc/flash_attention.cu``) and the paged kernel's
-bf16 and int8 paths (``csrc/paged_decode.cu``) run only on the card, but
-their rounding can be reproduced here: bf16 operands, fp32 products per
-tile, the score scaled after the product (kernel A), an online softmax per
-64-key tile (per 32-row chunk of one page for the paged kernel) and the
-probability split into bf16 hi + lo before it meets V. The emulation lies within
-``KERNEL_TOL`` of the plain versions (``causal_attention``,
-``paged_decode_attention_xla``), and the same emulation with P rounded once
-to bf16 does not: that is why the kernels carry the split.
+Kernel A's bf16 path (``csrc/flash_attention.cu``) and the decode body of
+``csrc/decode_tc.cuh`` (kernels B and C and the paged kernel, bf16 and
+int8) run only on the card, but their rounding can be reproduced here: bf16
+operands, fp32 products per tile, the score scaled after the product
+(kernel A), an online softmax per 64-key tile (per 32-row chunk for the
+decode body: of one page for the paged kernel, of one split for B and C)
+and the probability split into bf16 hi + lo before it meets V. The
+emulation lies within ``KERNEL_TOL`` of the plain versions
+(``causal_attention``, ``paged_decode_attention_xla``, ``decode_attention``,
+``ragged_decode_attention_plain``), and the same emulation with P rounded
+once to bf16 does not: that is why the kernels carry the split. Kernel C's
+plain version keeps the scaled query in fp32, so C splits q into bf16 hi +
+lo as well; with q rounded once, as B rounds it, a sharp softmax at D = 128
+falls outside C's tolerance.
 """
 
 import numpy as np
@@ -16,7 +21,13 @@ import pytest
 import torch
 
 from tts_max_tpu_torch.models.llama import _quantize_kv
-from tts_max_tpu_torch.ops.attention import KERNEL_TOL, NEG_INF, causal_attention
+from tts_max_tpu_torch.ops.attention import (
+    KERNEL_TOL,
+    NEG_INF,
+    causal_attention,
+    decode_attention,
+    ragged_decode_attention_plain,
+)
 from tts_max_tpu_torch.ops.paged_attention import paged_decode_attention_xla
 
 
@@ -99,6 +110,70 @@ def emulate_paged(q, k_pool, v_pool, table, lengths, *, split=True):
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def emulate_contiguous(q, k_cache, v_cache, lengths, *, q_split, split=True,
+                       rows_per_split=64, chunk=32, warps=4):
+    """The decode body's arithmetic over a contiguous cache (kernels B and
+    C): q [B, Hq, D] bf16; caches [B, T, Hkv, D] bf16 or int8 dicts. Each
+    split of ``rows_per_split`` rows (whole chunks) deals its 32-row chunks
+    to ``warps`` warps, each with its own online softmax; the warps' states
+    merge per split and the splits' in the combine. q is rounded to bf16
+    after scaling (B) or, with ``q_split``, split into bf16 hi + lo whose
+    products are summed in fp32 (C)."""
+    quant = isinstance(k_cache, dict)
+    kq, ks = (k_cache["q"], k_cache["scale"]) if quant else (k_cache, None)
+    vq, vs = (v_cache["q"], v_cache["scale"]) if quant else (v_cache, None)
+    b, t, hkv, d = kq.shape
+    n_rep = q.shape[1] // hkv
+    qs = (q.float() * d ** -0.5).reshape(b, hkv, n_rep, d)
+    hi = qs.bfloat16().float()
+    lo = (qs - hi).bfloat16().float()
+
+    def merge(states):
+        m = torch.stack([s[0] for s in states]).amax(0)
+        f = [torch.exp(s[0] - m) for s in states]
+        return (m, sum(s[1] * fi for s, fi in zip(states, f)),
+                sum(s[2] * fi[..., None] for s, fi in zip(states, f)))
+
+    out = torch.zeros(b, hkv, n_rep, d)
+    for i in range(b):
+        length = min(int(lengths[i]), t)
+        parts = []
+        for t_begin in range(0, length, rows_per_split):
+            n_chunks = -(-(min(length, t_begin + rows_per_split) - t_begin) // chunk)
+            states = []
+            for w in range(warps):
+                m = torch.full((hkv, n_rep), NEG_INF)
+                l = torch.zeros(hkv, n_rep)
+                acc = torch.zeros(hkv, n_rep, d)
+                for c in range(w, n_chunks, warps):
+                    j = t_begin + c * chunk + torch.arange(chunk)
+                    ok = j < length
+                    rows = torch.where(ok, j, 0)
+                    kt = torch.where(ok[:, None, None], kq[i, rows].float(), 0.0)
+                    vt = torch.where(ok[:, None, None], vq[i, rows].float(), 0.0)
+                    sc = torch.einsum("grd,kgd->grk", hi[i], kt)
+                    if q_split:
+                        sc = sc + torch.einsum("grd,kgd->grk", lo[i], kt)
+                    if quant:
+                        sc = sc * torch.where(ok[:, None], ks[i, rows], 0.0).T[:, None, :]
+                    sc = torch.where(ok, sc, NEG_INF)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+                    l = alpha * l + p.sum(-1)
+                    m = m_new
+                    if quant:
+                        p = torch.where(ok, p * torch.where(ok[:, None], vs[i, rows], 0.0)
+                                        .T[:, None, :], 0.0)
+                    acc = alpha[..., None] * acc + _pv(p, vt, "grk,kgd->grd", split)
+                states.append((m, l, acc))
+            parts.append(merge(states))
+        if parts:
+            _, l, acc = merge(parts)
+            out[i] = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hkv * n_rep, d).to(q.dtype)
+
+
 def _ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     """max |out - ref| / (atol + rtol |ref|): at most 1 within KERNEL_TOL."""
     rtol, atol = KERNEL_TOL[torch.bfloat16]
@@ -158,3 +233,61 @@ def test_paged_split_within_tol_bf16_p_outside(quant, bs):
     assert torch.isfinite(split.float()).all()
     assert _ratio(split, ref) <= 1.0
     assert _ratio(once, ref) > 1.0
+
+
+def _contiguous_inputs(rng, b, t, hq, hkv, d, lens, quant=False, sharp=1.0):
+    """q [b, hq, d] (times ``sharp``) and caches [b, t, hkv, d] in bf16 (or
+    int8 with scales), NaN past every length (in the scales for int8)."""
+    q = (_bf16(rng, b, hq, d).float() * sharp).bfloat16()
+    k, v = _bf16(rng, b, t, hkv, d), _bf16(rng, b, t, hkv, d)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    if quant:
+        k, v = _quantize_kv(k), _quantize_kv(v)
+    dead = torch.arange(t)[None, :] >= lengths[:, None]
+    for c in (k, v):
+        (c["scale"] if quant else c)[dead] = float("nan")
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("d,quant", [(64, False), (64, True), (128, False), (128, True)])
+def test_contiguous_kernel_b_within_tol(d, quant):
+    """Kernel B on the decode body (q rounded, as its plain version rounds
+    it): lengths 0, 1, 31, 32, 33 and T = 200 (not a multiple of 32), NaN
+    past each, n_rep 4, splits of 64 rows; within ``KERNEL_TOL`` of
+    ``decode_attention``, and outside it with P rounded once to bf16."""
+    rng = np.random.default_rng(d + quant)
+    lens = [0, 1, 31, 32, 33, 200, 137]
+    q, k, v, lengths = _contiguous_inputs(rng, len(lens), 200, 32, 8, d, lens, quant)
+    ref = decode_attention(q, k, v, lengths)
+    got = emulate_contiguous(q, k, v, lengths, q_split=False)
+    once = emulate_contiguous(q, k, v, lengths, q_split=False, split=False)
+    assert torch.isfinite(got.float()).all() and (got[0] == 0).all()
+    assert _ratio(got, ref) <= 1.0
+    assert _ratio(once, ref) > 1.0
+
+
+@pytest.mark.parametrize("d,hq,rows_per_split", [(64, 32, 64), (128, 32, 128), (64, 64, 416)])
+def test_contiguous_kernel_c_within_tol(d, hq, rows_per_split):
+    """Kernel C on the decode body (q split into bf16 hi + lo): lengths 0,
+    1, 31, 32, 33 and T = 200, NaN past each, n_rep 4 and 8; within
+    ``KERNEL_TOL`` of ``ragged_decode_attention_plain``, zeros at length 0."""
+    rng = np.random.default_rng(3 * d + hq)
+    lens = [0, 1, 31, 32, 33, 200, 137]
+    q, k, v, lengths = _contiguous_inputs(rng, len(lens), 200, hq, 8, d, lens)
+    ref = ragged_decode_attention_plain(q, k, v, lengths)
+    got = emulate_contiguous(q, k, v, lengths, q_split=True,
+                             rows_per_split=rows_per_split)
+    assert torch.isfinite(got.float()).all() and (got[0] == 0).all()
+    assert _ratio(got, ref) <= 1.0
+
+
+def test_kernel_c_needs_the_q_split():
+    """At D = 128 (scale 128^-1/2, not a power of two) with a sharp softmax
+    (q x 4), C's emulation with the scaled query rounded once to bf16, as B
+    rounds it, falls outside C's ``KERNEL_TOL``; with the hi/lo split it
+    lies inside."""
+    rng = np.random.default_rng(11)
+    q, k, v, lengths = _contiguous_inputs(rng, 2, 256, 8, 2, 128, [256, 200], sharp=4.0)
+    ref = ragged_decode_attention_plain(q, k, v, lengths)
+    assert _ratio(emulate_contiguous(q, k, v, lengths, q_split=True), ref) <= 1.0
+    assert _ratio(emulate_contiguous(q, k, v, lengths, q_split=False), ref) > 1.0

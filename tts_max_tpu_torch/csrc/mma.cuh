@@ -1,5 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 paths of
-// kernel A (flash_attention.cu) and the paged kernel (paged_decode.cu).
+// kernel A (flash_attention.cu) and of the decode body decode_tc.cuh
+// (kernels B and C and the paged kernel).
 //
 // Fragment layouts of mma.m16n8k16 (row-major A 16x16, column-major B
 // 16x8, fp32 C 16x8), for lane = 4 * g + t:
@@ -82,10 +83,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   return bits(__floats2bfloat162_rn(x, y));
 }
 
-// The hi/lo split of a pair of probabilities: hi = bf16(p), lo =
-// bf16(p - hi). hi + lo carries about 16 significant bits, so a product
-// with P as the A operand errs by ~2^-16 |p| where bf16 P alone errs by
-// up to 2^-8 |p|.
+// The hi/lo split of a pair of fp32 values (probabilities, or kernel C's
+// scaled query): hi = bf16(p), lo = bf16(p - hi). hi + lo carries about 16
+// significant bits, so a product with P as the A operand errs by ~2^-16
+// |p| where bf16 P alone errs by up to 2^-8 |p|.
 __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   const float2 hf = __bfloat1622float2(h);

@@ -425,9 +425,9 @@ def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
 
     ``ragged`` chooses the decode kernel, as the JAX ``decode_step``'s
     ``flash`` keyword does: kernel B (the default; bf16, fp32 or int8 KV) or,
-    with ``ragged=True``, kernel C (``ragged_decode_attention``: one block
-    per (sequence, kv head) walking its valid rows; bf16 or fp32 KV only),
-    the serving pool's decode attention."""
+    with ``ragged=True``, kernel C (``ragged_decode_attention``: B's
+    split-K schedule with the scaled query kept in fp32 and zeros at length
+    0; bf16 or fp32 KV only), the serving pool's decode attention."""
     if ragged and cache_is_quantized(cache):
         raise ValueError("ragged decode attention (kernel C) has no int8 form; "
                          "an int8 cache decodes with kernel B")

@@ -25,14 +25,13 @@ CUDA cores.
 from __future__ import annotations
 
 import ctypes
-import functools
 import operator
 
 import torch
 
 from tts_max_tpu_torch.ops import cuda_build
 from tts_max_tpu_torch.ops.attention import decode_attention
-from tts_max_tpu_torch.ops.flash_decode import _HEAD_DIMS, _MAX_REP, _Q_DTYPES
+from tts_max_tpu_torch.ops.flash_decode import _Q_DTYPES, check_inputs, partials, sm_count
 
 
 def _split(pool):
@@ -117,36 +116,11 @@ def _paged(entry, q, k_pool, v_pool, table, lengths, layer):
             v_pool = {"q": vq[layer], "scale": vs[layer]} if quant else vq[layer]
         return paged_decode_attention_xla(q, k_pool, v_pool, table, lengths)
 
-    tensors = [q, kq, vq, table, lengths] + ([ks, vs] if quant else [])
-    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
-        raise ValueError("all inputs must share one CUDA device")
-    if q.dtype not in _Q_DTYPES:
-        raise ValueError(f"q dtype {q.dtype} not in {list(_Q_DTYPES)}")
-    pool_dtype = torch.int8 if quant else q.dtype
-    if kq.dtype != pool_dtype or vq.dtype != pool_dtype:
-        raise ValueError(f"pool dtype {kq.dtype}/{vq.dtype}, need {pool_dtype}")
-    if quant and (ks.dtype != torch.float32 or vs.dtype != torch.float32):
-        raise ValueError("int8 pool scales must be float32")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
-    if hq // hkv > _MAX_REP:
-        raise ValueError(f"{hq // hkv} query heads per kv head > {_MAX_REP}")
-    if table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError(f"table {table.dtype} / lengths {lengths.dtype}, need int32")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("q, pools, scales, table and lengths must be contiguous")
-    if q.dtype == torch.bfloat16 and (kq.data_ptr() % 16 or vq.data_ptr() % 16
-                                      or q.data_ptr() % 4):
-        raise ValueError("bf16 q must start 4-byte and the pools 16-byte aligned "
-                         "(the tensor-core kernel copies 16-byte pieces)")
+    check_inputs(q, kq, vq, [ks, vs] if quant else [], [lengths, table])
 
     pages = _pages_per_split(b, hkv, p, q.device)
     n_split = -(-p // pages)
-    n_rep = hq // hkv
-    part_acc = torch.empty(b, hkv, n_split, n_rep, d, dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty(b, hkv, n_split, n_rep, 2, dtype=torch.float32,
-                          device=q.device)
+    part_acc, part_ml = partials(q, hkv, n_split)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.paged_decode_fwd(
@@ -165,15 +139,9 @@ def _paged(entry, q, k_pool, v_pool, table, lengths, layer):
 
 def _pages_per_split(b: int, hkv: int, p: int, device: torch.device) -> int:
     """Whole pages per split of the table's width: about two blocks per SM
-    in all (kernel B's ``_num_splits`` over pages instead of rows)."""
-    want = max(1, -(-2 * _sm_count(device.index) // (b * hkv)))
+    in all (kernel B's ``num_splits`` over pages instead of chunks)."""
+    want = max(1, -(-2 * sm_count(device.index) // (b * hkv)))
     return -(-p // want)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """SMs of CUDA device ``index`` (a tensor's device always has one), read once."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:

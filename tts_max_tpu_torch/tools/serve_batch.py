@@ -21,7 +21,7 @@ Runs on the card unless ``--device cpu`` is given:
 
   python -m tts_max_tpu_torch.tools.serve_batch --model_dir serving \\
       --requests reqs.jsonl --out_dir wavs [--engine contiguous|paged] \\
-      [--max_batch 8] [--max_len 2048] [--steps_per_dispatch 16] [--block_size 64] \\
+      [--max_batch 8] [--max_len 2048] [--steps_per_dispatch 0] [--block_size 64] \\
       [--quantized_kv] [--no_prefix_cache] [--no_constrain] [--no_warmup] \\
       [--admission_policy fifo|shortest] [--max_tokens 1792] [--seed 42] \\
       [--codec_decoder dec.pt --codec_encoder enc.pt] [--dtype bfloat16] [--device cuda]
@@ -54,6 +54,10 @@ from tts_max_tpu_torch.utils.logging import get_logger, setup_logging
 
 log = get_logger("serve_batch")
 
+# What --steps_per_dispatch 0 means: the reference's auto value without
+# --prefill_ahead (which the port does not take)
+AUTO_STEPS_PER_DISPATCH = 16
+
 
 def add_engine_args(parser: argparse.ArgumentParser) -> None:
     """The engine flags ``serve_batch`` and ``serve_http`` share."""
@@ -67,8 +71,10 @@ def add_engine_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--quantized_kv", action="store_true")
     parser.add_argument("--no_constrain", action="store_true",
                         help="disable the speech-window sampling constraint")
-    parser.add_argument("--steps_per_dispatch", type=int, default=16,
-                        help="lockstep decode steps per dispatch (one host sync each)")
+    parser.add_argument("--steps_per_dispatch", type=int, default=0,
+                        help="lockstep decode steps per dispatch (one host sync each); "
+                             f"0 = auto ({AUTO_STEPS_PER_DISPATCH}, as the reference "
+                             "without --prefill_ahead)")
     parser.add_argument("--admission_policy", choices=["fifo", "shortest"], default="fifo")
     parser.add_argument("--no_warmup", action="store_true",
                         help="skip the startup warmup (kernel build, one prefill per "
@@ -85,7 +91,7 @@ def build_engine(args, params, cfg, sv, prefix_cache: bool):
         window = None
     kw = dict(max_batch=args.max_batch, max_len=args.max_len,
               quantized_kv=args.quantized_kv, vocab_window=window,
-              steps_per_dispatch=args.steps_per_dispatch,
+              steps_per_dispatch=args.steps_per_dispatch or AUTO_STEPS_PER_DISPATCH,
               admission_policy=args.admission_policy, device=args.device)
     if args.engine == "paged":
         engine = PagedInferenceEngine(params, cfg, block_size=args.block_size,
@@ -99,10 +105,7 @@ def build_engine(args, params, cfg, sv, prefix_cache: bool):
     return engine
 
 
-def main(argv=None) -> dict:
-    """Serve the JSONL; returns {"completions", "engine", "outputs" (request
-    index -> wav path), "load_s", "gen_s", "ttft_s" (per completion, host
-    clock from the first submit)}."""
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(allow_abbrev=False)
     add_model_args(parser)
     add_engine_args(parser)
@@ -110,7 +113,14 @@ def main(argv=None) -> dict:
     parser.add_argument("--out_dir", required=True)
     parser.add_argument("--no_prefix_cache", action="store_true")
     parser.add_argument("--seed", type=int, default=42)
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Serve the JSONL; returns {"completions", "engine", "outputs" (request
+    index -> wav path), "load_s", "gen_s", "ttft_s" (per completion, host
+    clock from the first submit)}."""
+    args = parse_args(argv)
     setup_logging(0)
     os.makedirs(args.out_dir, exist_ok=True)
 
