@@ -12,8 +12,9 @@ kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
 the contiguous engine's), the paged decode kernel behind its three entry
 points (D, E, F) and D's stacked form (bf16 and int8 pools, block sizes
 16, 48 and 64), and kernel G (the codec encoder's
-anti-aliased SnakeBeta) at the six shapes of a 22 s prompt's encode and at
-edge cases. It checks the port's GPU path against its CPU path on a small
+anti-aliased SnakeBeta) at the six shapes of a 22 s prompt's encode, at
+edge cases and at every compiled strip length, logging whether each output
+is bitwise its plain version's and G's SASS instructions an element. It checks the port's GPU path against its CPU path on a small
 model, through ``generate`` and through the paged engine under each paged
 entry point, and on a small codec encoder. Then it drives the main paths at
 the full width of Llama-3.2-1B, the full Vocos decoder and the full codec
@@ -37,8 +38,10 @@ from __future__ import annotations
 
 import collections
 import functools
+import heapq
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -103,17 +106,115 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def sass_counts(lib) -> str:
-    """How many lines of a built library's SASS (cuobjdump, over all its
-    kernels) hold tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM)
-    instructions, as ``grep -c`` counts them."""
+def _sass(lib) -> str | None:
+    """``cuobjdump -sass`` of a built library, None without cuobjdump."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
+        return None
+    return subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def sass_counts(lib) -> str:
+    """How many lines of a built library's SASS (over all its kernels) hold
+    tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions,
+    as ``grep -c`` counts them."""
+    text = _sass(lib)
+    if text is None:
         return "not measured (no cuobjdump)"
-    lines = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True,
-                           text=True, timeout=120).stdout.splitlines()
+    lines = text.splitlines()
     return " ".join(f"{op}={sum(op in line for line in lines)}"
                     for op in ("HMMA", "LDGSTS", "LDSM"))
+
+
+def _sass_functions(text: str) -> dict:
+    """{kernel: [instruction, ...]} from ``cuobjdump -sass`` output, each
+    instruction as (address, text)."""
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _opcode(text: str) -> str:
+    return (text.split()[1] if text.startswith("@") else text.split()[0]).split(".")[0]
+
+
+def _shortest_loop_path(ins) -> list:
+    """The instructions of one trip round the storing loop (a backward
+    branch whose range holds an STG) with the fewest instructions on its
+    shortest path from head to latch: the interior strip loop with every
+    sine on its fast path (the slow path and the edge loop take more)."""
+    index = {a: i for i, (a, _) in enumerate(ins)}
+
+    def target(t):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+        return None if m is None else index.get(int(m.group(1), 16))
+
+    def succ(i):
+        t = ins[i][1]
+        j = target(t)
+        if j is not None:
+            return [j, i + 1] if t.startswith("@") else [j]
+        return [] if _opcode(t) == "EXIT" and not t.startswith("@") else [i + 1]
+
+    best = []
+    for latch, (_, t) in enumerate(ins):
+        head = target(t)
+        if head is None or head > latch or not any(
+                _opcode(u) == "STG" for _, u in ins[head:latch + 1]):
+            continue
+        dist, prev, heap = {head: 1}, {}, [(1, head)]
+        while heap:
+            d, j = heapq.heappop(heap)
+            if j == latch or d > dist[j]:
+                continue
+            for k in succ(j):
+                if head <= k <= latch and d + 1 < dist.get(k, 1 << 30):
+                    dist[k], prev[k] = d + 1, j
+                    heapq.heappush(heap, (d + 1, k))
+        if latch in dist and (not best or dist[latch] < len(best)):
+            path, j = [latch], latch
+            while j != head:
+                j = prev[j]
+                path.append(j)
+            best = [ins[j][1] for j in reversed(path)]
+    return best
+
+
+def act1d_sass() -> tuple[dict, dict]:
+    """Kernel G's SASS (cuobjdump): per compiled R, the instructions an
+    element on the interior strip loop's path when every sine takes the
+    fast path (a trip is 6 rows of one channel) and the FFMAs among them
+    (the sine's own); and the LDS / STS / BAR lines in the whole library
+    (0: no shared memory, no barrier). Empty without cuobjdump."""
+    from tts_max_tpu_torch.ops import cuda_build
+
+    text = _sass(cuda_build.library_path("act1d"))
+    if text is None:
+        return {}, {}
+    funcs = _sass_functions(text)
+    per_elem = {}
+    for name, ins in funcs.items():
+        path = _shortest_loop_path(ins)
+        rows = int(re.search(r"ILi(\d+)E", name).group(1))
+        per_elem[rows] = (len(path) / 6, sum(_opcode(t) == "FFMA" for t in path) / 6)
+    shared = {op: sum(_opcode(t) == op for ins in funcs.values() for _, t in ins)
+              for op in ("LDS", "STS", "BAR")}
+    return per_elem, shared
+
+
+def sm_clock_max_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60).stdout
+    return 1e6 * float(out.split()[0])
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -152,8 +253,9 @@ def attention_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None,
 
 
 # The earlier kernels' times at the same shapes (the CUDA-core kernels A, B,
-# C and the paged kernel on decode_split.cuh; PERF.md section 6, one H100
-# 80GB HBM3 at 700 W), printed in the per-case lines beside this run's:
+# C and the paged kernel on decode_split.cuh, and G's shared-memory
+# stencil; PERF.md section 6, one H100 80GB HBM3 at 700 W), printed in the
+# per-case lines beside this run's:
 # (kernel, case) -> ms
 PREV_MS = {
     ("B", "e3"): 0.1137, ("B", "main"): 0.0288,
@@ -166,6 +268,8 @@ PREV_MS = {
     ("D", "D=128"): 0.1500, ("E", "D=128"): 0.1497, ("F", "D=128"): 0.1498,
     ("D", "D=128 int8"): 0.1487, ("E", "D=128 int8"): 0.1497, ("F", "D=128 int8"): 0.1497,
     ("D", "B=1"): 0.0815, ("E", "B=1"): 0.0321, ("F", "B=1"): 0.0323,
+    ("G", "block 1"): 0.1985, ("G", "block 2"): 0.1887, ("G", "block 3"): 0.1891,
+    ("G", "block 4"): 0.1004, ("G", "block 5"): 0.0558, ("G", "final"): 0.0286,
 }
 
 
@@ -577,12 +681,19 @@ def act1d_bound_ms(b, t, c) -> tuple[float, str]:
 
 def check_kernel_g(timer: Timer) -> dict:
     from tts_max_tpu_torch.models.codec import filters
-    from tts_max_tpu_torch.ops.act1d import TB, activation1d_fused, activation1d_kernel
+    from tts_max_tpu_torch.ops import act1d
+    from tts_max_tpu_torch.ops.act1d import activation1d_fused, activation1d_kernel
 
     log("kernel G: activation1d_kernel vs ops.act1d.activation1d_fused (plain, fp32); "
         "unfused = filters.activation1d(fused=False), cuDNN depthwise conv_transpose1d "
         "+ snake + depthwise strided conv1d (yardstick: no single PyTorch call "
         "computes G); random log-scale alpha, beta at 0.3 std")
+    per_elem, shared = act1d_sass()
+    clock = sm_clock_max_hz()
+    log("  SASS, interior strip loop, every sine on the fast path: " + "; ".join(
+        f"R={r} {n:.1f} instructions an element ({f:.1f} FFMA, the sine's)"
+        for r, (n, f) in sorted(per_elem.items())) + "; library " + " ".join(
+        f"{k}={v}" for k, v in shared.items()) + f"; max SM clock {clock / 1e6:.0f} MHz")
     gen = torch.Generator(device="cuda").manual_seed(6)
 
     def inputs(b, t, c, scales=(), amp=None):
@@ -596,35 +707,64 @@ def check_kernel_g(timer: Timer) -> dict:
         return x, p
 
     worst = 0.0
+
+    def check(label, x, p):
+        nonlocal worst
+        out, ref = activation1d_kernel(x, p), activation1d_fused(x, p)
+        err, tol = check_close(out, ref, f"kernel G {label}")
+        worst = max(worst, err)
+        return err, tol, bool(torch.equal(out, ref))
+
+    # T below the warm-up, around one strip of every R, past three strips
+    ts = sorted({1, 2, 5, 6, 7} | {r + d for r in act1d.STRIP_ROWS for d in (-1, 1)}
+                | {3 * r + 5 for r in act1d.STRIP_ROWS})
     edge = [(f"B=2 T={t} C=4, scales 30 / 0.01", inputs(2, t, 4, scales=(30.0, 0.01)))
-            for t in (1, 2, 7, TB - 1, TB + 1)]
+            for t in ts]
     edge += [("B=2 T=5000 C=48, scales 0.01 / 30", inputs(2, 5000, 48, scales=(0.01, 30.0))),
              ("B=1 T=4096 C=48, |x| up to 50", inputs(1, 4096, 48, amp=50.0)),
-             ("B=1 T=300 C=20 (masked channels)", inputs(1, 300, 20))]
+             ("B=1 T=4096 C=48, |x| up to 1e6 (sinf's slow path)",
+              inputs(1, 4096, 48, amp=1e6)),
+             ("B=1 T=300 C=20 (masked lanes)", inputs(1, 300, 20))]
     for label, (x, p) in edge:
-        err, tol = check_close(activation1d_kernel(x, p), activation1d_fused(x, p),
-                               f"kernel G {label}")
-        worst = max(worst, err)
-        log(f"  edge case {label}: max_abs_err={err:.3e} ({tol})")
-    rows, per_encode = [], dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0)
+        err, tol, same = check(label, x, p)
+        log(f"  edge case {label}: max_abs_err={err:.3e} ({tol}), bitwise {same}")
+    rule = act1d.launch_rows
+    try:  # every compiled R, forced in place of the rule's choice
+        for r in act1d.STRIP_ROWS:
+            act1d.launch_rows = lambda b, t, c, r=r: r
+            for t in (3 * r + 5, 4000):
+                label = f"R={r} B=2 T={t} C=48, scales 30 / 0.01"
+                err, tol, same = check(label, *inputs(2, t, 48, scales=(30.0, 0.01)))
+                log(f"  strip length {label}: max_abs_err={err:.3e} ({tol}), bitwise {same}")
+    finally:
+        act1d.launch_rows = rule
+    rows, per_encode = [], dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0,
+                                issue_floor_ms=0.0)
     for label, t, c, n in ENCODER_SHAPES:
         x, p = inputs(1, t, c)
-        err, tol = check_close(activation1d_kernel(x, p), activation1d_fused(x, p),
-                               f"kernel G {label}")
-        worst = max(worst, err)
+        err, tol, same = check(label, x, p)
+        r = act1d.launch_rows(1, t, c)
         ms = timer.ms(lambda: activation1d_kernel(x, p))
         plain_ms = timer.ms(lambda: activation1d_fused(x, p), iters=5)
         unfused_ms = timer.ms(lambda: filters.activation1d(x, p, fused=False), iters=5)
         bound, by = act1d_bound_ms(1, t, c)
-        for k, v in dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms, bound_ms=bound).items():
-            per_encode[k] += n * v
-        log(f"  {label:7s} [1, {t:6d}, {c:4d}] x{n}: max_abs_err={err:.3e} ({tol})  "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f} unfused_ms={unfused_ms:.4f} "
-            f"bound_ms={bound:.5f} ({by}, {8 * t * c / 2 ** 20:.1f} MiB moved)")
+        # instruction issue at 128 lanes a cycle on every SM, at the max clock
+        issue = (1e3 * per_elem[r][0] * t * c / (act1d.SMS * 128 * clock)
+                 if r in per_elem else float("nan"))
+        for k, val in dict(ms=ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                           bound_ms=bound, issue_floor_ms=issue).items():
+            per_encode[k] += n * val
+        log(f"  {label:7s} [1, {t:6d}, {c:4d}] x{n}: max_abs_err={err:.3e} ({tol}), "
+            f"bitwise {same}; R={r}, {act1d.launch_warps(1, t, c, r) / act1d.SMS:.1f} "
+            f"warps per SM; "
+            f"ms={ms:.4f} prev_ms={PREV_MS[('G', label)]:.4f} plain_ms={plain_ms:.4f} "
+            f"unfused_ms={unfused_ms:.4f} bound_ms={bound:.5f} ({by}, "
+            f"{8 * t * c / 2 ** 20:.1f} MiB moved) issue_floor_ms={issue:.5f}")
         rows.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
                          bound_by=by))
     log("  per 22 s encode (36 launches): " + ", ".join(
-        f"{k}={v:.4f}" for k, v in per_encode.items()))
+        f"{k}={val:.4f}" for k, val in per_encode.items())
+        + f" (prev_ms={sum(n * PREV_MS[('G', lb)] for lb, _, _, n in ENCODER_SHAPES):.4f})")
     return dict(max_abs_err=worst, **rows[0])
 
 
@@ -1431,9 +1571,9 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-            # the tensor-core kernels are sized to fit their registers
-            if (name != "act1d" and "spill" in line
-                    and " 0 bytes spill stores, 0 bytes spill loads" not in line):
+            # every kernel is sized to fit its registers; a stack frame (sinf's
+            # slow path in act1d) is allowed, and logged on the same line
+            if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                 raise AssertionError(f"ptxas {name} spills: {line.strip()}")
         log(f"  SASS {name}: {sass_counts(cuda_build.library_path(name))}")
 

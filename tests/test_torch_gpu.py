@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tts_max_tpu_torch.models.llama import _quantize_kv
+from tts_max_tpu_torch.ops.act1d import STRIP_ROWS
 from tts_max_tpu_torch.ops.attention import (
     KERNEL_TOL,
     causal_attention,
@@ -150,23 +151,48 @@ def test_paged_kernel_matches_plain(quant):
             torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,t,c", [(1, 3000, 48), (2, 65, 4), (2, 1, 4), (1, 700, 96)])
-def test_act1d_kernel_matches_plain(b, t, c):
-    """Kernel G against its plain version ``activation1d_fused`` on the card, fp32:
-    sequences at different scales (a halo that read the other sequence
-    would show), T around and below one block, masked channels (C = 4)."""
-    _cuda()
-    from tts_max_tpu_torch.ops.act1d import activation1d_fused, activation1d_kernel
-
-    g = torch.Generator(device="cuda").manual_seed(0)
+def _act1d_case(g, b, t, c):
     x = torch.randn(b, t, c, generator=g, device="cuda")
     x[0] *= 40.0
     x[-1] *= 0.01
     p = {k: 0.3 * torch.randn(c, generator=g, device="cuda") for k in ("alpha", "beta")}
+    return x, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c", [(1, 3000, 48), (2, 65, 4), (2, 1, 4), (1, 700, 96)]
+                         + [(2, t, 4) for r in STRIP_ROWS for t in (r - 1, r + 1)]
+                         + [(2, 3 * r + 5, 20) for r in STRIP_ROWS])
+def test_act1d_kernel_matches_plain(b, t, c):
+    """Kernel G against its plain version ``activation1d_fused`` on the card, fp32:
+    sequences at different scales (a halo that read the other sequence
+    would show), T around one strip, below the warm-up and past three
+    strips, channels that fill no warp (C = 4) or not a whole one (C = 20)."""
+    _cuda()
+    from tts_max_tpu_torch.ops.act1d import activation1d_fused, activation1d_kernel
+
+    x, p = _act1d_case(torch.Generator(device="cuda").manual_seed(0), b, t, c)
     rtol, atol = KERNEL_TOL[torch.float32]
     torch.testing.assert_close(activation1d_kernel(x, p), activation1d_fused(x, p),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", STRIP_ROWS)
+def test_act1d_every_strip_length_matches_plain(rows, monkeypatch):
+    """Each compiled R of kernel G, forced in place of the rule's choice, at
+    T = 1, R + 1 and 3R + 5 (edge and interior strips) and at an
+    encoder-like length, B = 2 at scales 40 and 0.01."""
+    _cuda()
+    from tts_max_tpu_torch.ops import act1d
+
+    monkeypatch.setattr(act1d, "launch_rows", lambda b, t, c: rows)
+    g = torch.Generator(device="cuda").manual_seed(rows)
+    rtol, atol = KERNEL_TOL[torch.float32]
+    for t in (1, rows + 1, 3 * rows + 5, 4000):
+        x, p = _act1d_case(g, 2, t, 48)
+        torch.testing.assert_close(act1d.activation1d_kernel(x, p),
+                                   act1d.activation1d_fused(x, p), rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu

@@ -21,7 +21,13 @@ import torch
 
 from tts_max_tpu_torch.ops import cuda_build
 
-TB = 64  # output rows per block of the kernel (csrc/act1d.cu)
+# The kernel's strips (csrc/act1d.cu): a thread walks R output rows of one
+# channel of one sequence, in trips of 6 rows (the rings' length); each R is
+# a compiled instantiation.
+STRIP_ROWS = (48, 24, 12)
+TRIP = 6
+SMS = 132  # the H100's SMs
+WARPS_PER_SM = 24  # resident at the kernel's 80 registers: 6 blocks of 4 warps
 
 
 def kaiser_beta(half_size: int, half_width: float) -> float:
@@ -110,6 +116,24 @@ def activation1d_fused(x: torch.Tensor, p) -> torch.Tensor:
     return tapsum(e_ext, 0, td_e) + tapsum(o_ext, 0, td_o)
 
 
+def launch_warps(b: int, t: int, c: int, rows: int) -> int:
+    """Warps of a launch: one thread per (sequence, strip of ``rows`` rows,
+    channel)."""
+    return -(-b * -(-t // rows) * c // 32)
+
+
+def launch_rows(b: int, t: int, c: int) -> int:
+    """R for kernel G on [b, t, c]: the longest strip whose launch still
+    fills every SM's resident warps once (``WARPS_PER_SM``), else the
+    shortest. A long strip wastes the least on its warm-up (5 pairs and 10
+    x rows against R rows); a launch that leaves resident slots empty
+    wastes more (PERF.md section 6)."""
+    for rows in STRIP_ROWS:
+        if launch_warps(b, t, c, rows) >= WARPS_PER_SM * SMS:
+            return rows
+    return STRIP_ROWS[-1]
+
+
 def activation1d_kernel(x: torch.Tensor, p) -> torch.Tensor:
     """x: [B, T, C] fp32 -> [B, T, C]: up-2x -> SnakeBeta (log-scale
     ``p["alpha"]``, ``p["beta"]`` [C]) -> down-2x, ratio 2, 12 taps."""
@@ -127,12 +151,12 @@ def activation1d_kernel(x: torch.Tensor, p) -> torch.Tensor:
     if not (x.is_contiguous() and alpha.is_contiguous() and beta.is_contiguous()):
         raise ValueError("x, alpha, beta must be contiguous")
     b, t, c = x.shape
-    if min(b, t, c) < 1 or b > 65535:
-        raise ValueError(f"shape {tuple(x.shape)}: need B in [1, 65535], T, C >= 1")
+    if min(b, t, c) < 1:
+        raise ValueError(f"shape {tuple(x.shape)}: need B, T, C >= 1")
     out = torch.empty_like(x)
     lib = _lib()
     err = lib.act1d_fwd(x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), _taps(),
-                        out.data_ptr(), b, t, c,
+                        out.data_ptr(), b, t, c, launch_rows(b, t, c),
                         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "act1d_fwd")
     activation1d_kernel.launches += 1
@@ -159,6 +183,6 @@ def _lib() -> ctypes.CDLL:
     fn = lib.act1d_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_float), p, i, i, i, p]
+        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_float), p, i, i, i, i, p]
         fn.restype = i
     return lib
