@@ -14,9 +14,14 @@ points (D, E, F) and D's stacked form (bf16 and int8 pools, block sizes
 16, 48 and 64), and kernel G (the codec encoder's
 anti-aliased SnakeBeta) at the six shapes of a 22 s prompt's encode, at
 edge cases and at every compiled strip length, logging whether each output
-is bitwise its plain version's and G's SASS instructions an element. It checks the port's GPU path against its CPU path on a small
-model, through ``generate`` and through the paged engine under each paged
-entry point, and on a small codec encoder. Then it drives the main paths at
+is bitwise its plain version's and G's SASS instructions an element, and
+the weight-only quantized product (kn: every layer kernel of Llama-3.2-1B
+and Llama-3.1-8B in int8, int4, int4-g64 and int4-g128 at 1, 8 and 16
+rows, the untied 8B head window; vd: the tied 1B head window, int8 and
+int4), beside cuBLAS on the dequantized weight. It checks the port's GPU
+path against its CPU path on a small model, through ``generate`` (also
+quantized: int8 and int4-g64, greedy ids) and through the paged engine
+under each paged entry point, and on a small codec encoder. Then it drives the main paths at
 the full width of Llama-3.2-1B, the full Vocos decoder and the full codec
 encoder with wav2vec-BERT 2.0, random weights from seeds: text and a 5 s or
 22 s prompt wav to waveform through ``LocalTtsModel.synthesize_speech`` (the
@@ -26,7 +31,8 @@ paged int8 KV, contiguous, paged under the ``grid`` entry point), vocoding
 every completion, and the three serving CLIs (``tts_max_tpu_torch/tools``:
 single shot, a JSONL batch, the HTTP server with a streamed request) on an
 HF directory of the main path's weights that the port's writer stores in
-BF16. Launch counters, set to 0 before each path and read after it, must
+BF16, then the batch CLI with ``--quantize int4-g128`` on it and the single
+shot on a pre-quantized int8 dir of the same weights. Launch counters, set to 0 before each path and read after it, must
 equal what that path's requests and the engines' own counts imply.
 The next-to-last lines are a JSON summary of the kernels and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -768,17 +774,148 @@ def check_kernel_g(timer: Timer) -> dict:
     return dict(max_abs_err=worst, **rows[0])
 
 
+# --- the quantized product (kn, vd) ---------------------------------------------
+
+QUANT_SHAPES = [("1B wq/wo", 2048, 2048), ("1B wk/wv", 2048, 512),
+                ("1B w_gate/w_up", 2048, 8192), ("1B w_down", 8192, 2048),
+                ("8B wq/wo", 4096, 4096), ("8B wk/wv", 4096, 1024),
+                ("8B w_gate/w_up", 4096, 14336), ("8B w_down", 14336, 4096)]
+QUANT_MODES = {"int8": dict(bits=8), "int4": dict(bits=4),
+               "int4-g64": dict(bits=4, group_size=64),
+               "int4-g128": dict(bits=4, group_size=128)}
+QUANT_ROWS = (1, 8, 16)
+
+
+def quant_bound_ms(x: torch.Tensor, p: dict, n_out: int, out_dtype) -> tuple[float, str]:
+    """Least time for a weight-only product: the levels and scales read
+    once, x read once and y written once, against 2 M K N operations at
+    x's dtype's peak."""
+    levels = p["q4"] if "q4" in p else p["q"]
+    m, k = x.shape
+    nbytes = (levels.shape[0] * levels.shape[1] + 4 * p["scale"].numel()
+              + x.numel() * x.element_size() + m * n_out * torch.finfo(out_dtype).bits // 8)
+    t_ops, t_bytes = 2.0 * m * k * n_out / PEAK_FLOPS[x.dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_quant_close(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float, float]:
+    """Raises unless out is finite and within ``quant_matmul.KERNEL_TOL`` of
+    ref (the plain version in fp32): |out - ref| <= rtol |ref| + atol
+    max|ref|. Returns (max abs err, its ratio to the tolerance)."""
+    from tts_max_tpu_torch.ops.quant_matmul import KERNEL_TOL
+
+    rtol, atol = KERNEL_TOL[out.dtype]
+    err = (out.float() - ref).abs()
+    ratio = float((err / (rtol * ref.abs() + atol * ref.abs().max())).max())
+    if not (ratio <= 1.0 and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"{what}: max abs err {float(err.max()):.3e}, "
+                             f"{ratio:.2f}x the tolerance")
+    return float(err.max()), ratio
+
+
+def check_quant(timer: Timer) -> dict:
+    """The quantized product against its plain version (computed in fp32 on
+    the card) and beside cuBLAS on the dequantized weight: kn at every layer
+    kernel of Llama-3.2-1B and Llama-3.1-8B in every mode at 1, 8 and 16
+    rows, bf16 and fp32 x (timed in bf16); the untied int8 head window of
+    8B (kn through the window's row stride); vd on the tied head window of
+    Llama-3.2-1B, int8 and int4. Returns the numbers of the main case, a
+    batch-1 1B w_gate at int8 in bf16 (every decode step of s5)."""
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.models.quantization import quantize_tensor
+    from tts_max_tpu_torch.ops import quant_matmul as qm
+
+    bf = torch.bfloat16
+    log("quantized product: quant_matmul (kn) / quant_tied_logits (vd) vs "
+        "ops.quant_matmul.matmul_plain / tied_logits_plain on fp32 x (plain_ms: the plain "
+        "version on the kernel's bf16 inputs); library = torch.matmul, cuBLAS bf16, on the "
+        "weight dequantized to bf16 (reads 2x an int8, 4x an int4 weight's bytes); tol "
+        f"{qm.KERNEL_TOL[bf][0]:.4g}|ref| + {qm.KERNEL_TOL[bf][1]:.0e} max|ref| (bf16), "
+        f"{qm.KERNEL_TOL[torch.float32][0]:.0e}|ref| + {qm.KERNEL_TOL[torch.float32][1]:.0e} "
+        "max|ref| (fp32); per line: ms / bound_ms / plain_ms / library_ms at rows 1, 8, 16")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst, worst_ratio, main, n_cases = 0.0, 0.0, None, 0
+
+    def case(label, x_of, run, plain, lib, p, n_out):
+        """Check one product at rows 1, 8, 16 in bf16 and fp32; time bf16."""
+        nonlocal worst, worst_ratio, n_cases
+        times = []
+        for m in QUANT_ROWS:
+            for dtype in (bf, torch.float32):
+                x = x_of(m).to(dtype)
+                out = run(x)
+                err, ratio = check_quant_close(out, plain(x.float()), f"{label} m={m} {dtype}")
+                worst, worst_ratio, n_cases = max(worst, err), max(worst_ratio, ratio), n_cases + 1
+                if dtype is bf:
+                    bound, by = quant_bound_ms(x, p, n_out, out.dtype)
+                    times.append(dict(ms=timer.ms(lambda: run(x)), bound_ms=bound, bound_by=by,
+                                      plain_ms=timer.ms(lambda: plain(x), iters=5),
+                                      library_ms=timer.ms(lambda: lib(x))))
+        log(f"  {label:26s} " + "  ".join(
+            f"m={m}: {t['ms']:.4f}/{t['bound_ms']:.4f}/{t['plain_ms']:.4f}/"
+            f"{t['library_ms']:.4f}" for m, t in zip(QUANT_ROWS, times))
+            + f" ({times[0]['bound_by']})")
+        return times
+
+    for label, k, n in QUANT_SHAPES:
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        xs = torch.randn(max(QUANT_ROWS), k, generator=gen, device="cuda")
+        for mode, kw in QUANT_MODES.items():
+            p = quantize_tensor(w, 0, **kw)
+            wdeq = qm.dequantize(p, bf)
+            times = case(f"{label} {mode} [{k}, {n}]", lambda m: xs[:m],
+                         lambda x: qm.quant_matmul(x, p),
+                         lambda x: qm.matmul_plain(x, p), lambda x: x @ wdeq, p, n)
+            if label == "1B w_gate/w_up" and mode == "int8":
+                main = times[0]
+            del p, wdeq
+        del w, xs
+    # the untied int8 head of Llama-3.1-8B's width, through its speech window
+    lo, size = 262, 65542
+    cfg8 = llama.llama31_8b_config(n_layers=1)
+    w = torch.randn(cfg8.dim, lo + size + 64, generator=gen, device="cuda") * cfg8.dim ** -0.5
+    head = llama.slice_logits_head({"lm_head": {"kernel": quantize_tensor(w, 0)}}, cfg8, lo,
+                                   size)
+    del w
+    wdeq = qm.dequantize(head, bf)
+    xs = torch.randn(max(QUANT_ROWS), cfg8.dim, generator=gen, device="cuda")
+    case(f"8B lm_head window int8 [{cfg8.dim}, {size}]", lambda m: xs[:m],
+         lambda x: qm.quant_matmul(x, head), lambda x: qm.matmul_plain(x, head),
+         lambda x: x @ wdeq, head, size)
+    del head, wdeq
+    # the tied head of Llama-3.2-1B: embedding rows of the speech window
+    cfg1 = llama.llama32_1b_config()
+    emb = torch.randn(cfg1.vocab_size, cfg1.dim, generator=gen, device="cuda") * 0.02
+    xs = torch.randn(max(QUANT_ROWS), cfg1.dim, generator=gen, device="cuda")
+    for bits in (8, 4):
+        q = quantize_tensor(emb, 1, bits=bits)
+        win = llama.slice_logits_head({"embed": {"embedding": q}}, cfg1, lo, size)
+        wdeq = qm.dequantize(win, bf)
+        case(f"1B tied head int{bits} [{size}, {cfg1.dim}]", lambda m: xs[:m],
+             lambda x: qm.quant_tied_logits(x, win), lambda x: qm.tied_logits_plain(x, win),
+             lambda x: x @ wdeq.T, win, size)
+        del q, win, wdeq
+    del emb
+    log(f"  {n_cases} cases, all within tolerance: worst max_abs_err {worst:.3e}, "
+        f"{worst_ratio:.2f}x the tolerance at most")
+    return dict(max_abs_err=worst, **main)
+
+
 # --- the GPU path against the CPU path on a small model -----------------------
 
 
 def check_small_model(tok, sv) -> None:
     """fp32 greedy decode of a small random model: the CPU path (plain
     versions) picks the tokens; the GPU path (kernels) is fed the same
-    tokens and its logits must agree at every step."""
+    tokens and its logits must agree at every step. Then the model
+    quantized once on the CPU (int8, int4-g64) and moved to both devices:
+    the GPU path's greedy ids through ``generate`` must equal the CPU
+    path's, and the quantized product must have run on every decode step."""
     from tts_max_tpu_torch import convert
     from tts_max_tpu_torch.inference.generate import generate
-    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.models import llama, quantization
     from tts_max_tpu_torch.models.codec import vocos
+    from tts_max_tpu_torch.ops.quant_matmul import R_MAX, quant_matmul
     from tts_max_tpu_torch.ops.sampling import SamplingParams
 
     cfg = llama.LlamaConfig(vocab_size=len(tok), dim=256, n_layers=2, n_heads=4,
@@ -824,6 +961,30 @@ def check_small_model(tok, sv) -> None:
     log(f"small model fp32, GPU kernels vs CPU plain: prefill + 7 decode steps "
         f"max logit err {worst:.3e} (tol 1e-3); tiny codec wav max err "
         f"{werr:.3e} (tol 1e-3)")
+
+    def to_cuda(tree):
+        return ({k: to_cuda(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.cuda())
+
+    for mode, kw in (("int8", dict(bits=8)), ("int4-g64", dict(bits=4, group_size=64))):
+        qcpu = quantization.quantize_llama_params(cpu, **kw)
+        qgpu = to_cuda(qcpu)
+        ids = {}
+        for params, device in ((qcpu, "cpu"), (qgpu, "cuda")):
+            quant_matmul.launches = 0
+            res = generate(params, cfg, prompt, [n], None, sp=SamplingParams(temperature=0.0),
+                           max_new_tokens=16, eos_id=-1, vocab_window=window, device=device)
+            ids[device] = res.tokens[0].cpu().numpy()
+        # each decode step, and the prefill: its head, and its layers when the
+        # prompt has at most R_MAX rows
+        want = (7 * cfg.n_layers + 1) * res.steps + 1 + 7 * cfg.n_layers * (n <= R_MAX)
+        if not (np.array_equal(ids["cpu"], ids["cuda"]) and quant_matmul.launches == want):
+            raise AssertionError(f"small model {mode}: GPU ids {ids['cuda']} vs CPU "
+                                 f"{ids['cpu']}; {quant_matmul.launches} quantized launches, "
+                                 f"expected {want}")
+        log(f"small model {mode} (quantized on the CPU, moved to both): greedy ids identical "
+            f"over {res.steps} steps; quant_matmul launches {quant_matmul.launches} "
+            f"(expected {want}: {7 * cfg.n_layers + 1} a step, prompt of {n} rows)")
 
 
 def check_small_engine(tok, sv) -> None:
@@ -1380,15 +1541,18 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     directory of Llama-3.2-1B geometry written by the port's writer (the
     main path's seed-0 weights, stored in BF16 as a real HF checkpoint
     stores them, and an HF config.json); the codec in smoke mode, as the
-    CLIs run without codec checkpoints. Returns the launch counts summed
-    over the three."""
+    CLIs run without codec checkpoints (s1-s3). Then weight-only quantized
+    serving: ``serve_batch --quantize int4-g128`` on the same dir (s4) and
+    ``serving_inference`` on a pre-quantized int8 dir of the same weights,
+    written by the port's ``save_quantized_dir`` (s5). Returns the launch
+    counts summed over the five."""
     import http.client
     import shutil
     import threading
     from http.server import ThreadingHTTPServer
 
     from tts_max_tpu_torch.data.audio_io import save_wav
-    from tts_max_tpu_torch.models import hf_import
+    from tts_max_tpu_torch.models import hf_import, quantization
     from tts_max_tpu_torch.tools import serve_batch, serve_http, serving_inference
 
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
@@ -1429,7 +1593,8 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     log(f"  serving_inference: load {rep['load_s']:.2f} s, prompt encode "
         f"{1e3 * res.encoding_time:.2f} ms, prefill {1e3 * res.prefill_time:.2f} ms, "
         f"{res.decode_steps} steps "
-        f"({res.decode_steps / res.decode_time:.1f} tok/s), {n / 16000:.2f} s of audio")
+        f"({res.decode_steps / res.decode_time:.1f} tok/s, "
+        f"{1e3 * res.decode_time / res.decode_steps:.3f} ms/step), {n / 16000:.2f} s of audio")
     add(got)
 
     # 2. batch: 8 JSONL requests, voice descriptions and both prompt wavs
@@ -1463,7 +1628,8 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     samples = sum(_check_wav_file("serve_batch", p) for p in rep["outputs"].values())
     tokens = sum(len(c.tokens) for c in rep["completions"])
     log(f"  serve_batch: load {rep['load_s']:.2f} s, {len(rep['completions'])} completions, "
-        f"{tokens} tokens in {rep['gen_s']:.3f} s ({tokens / rep['gen_s']:.1f} tok/s), TTFT "
+        f"{tokens} tokens in {rep['gen_s']:.3f} s ({tokens / rep['gen_s']:.1f} tok/s, "
+        f"{1e3 * rep['gen_s'] / steps:.2f} ms per lockstep step), TTFT "
         f"p50 {1e3 * np.percentile(rep['ttft_s'], 50):.1f} ms p95 "
         f"{1e3 * np.percentile(rep['ttft_s'], 95):.1f} ms (host clock), "
         f"{samples / 16000:.2f} s of audio in {len(rep['outputs'])} wavs")
@@ -1535,6 +1701,71 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
         f"/stats {stats}")
     add(got)
     del server, eng
+
+    # 4. batch, weight-only int4-g128: the same 8 requests, the BF16 dir
+    # quantized at load
+    for c in counters:
+        c.launches = 0
+    rep = serve_batch.main(["--model_dir", model_dir, "--requests", reqs_path,
+                            "--out_dir", os.path.join(SERVING_DIR, "batch_int4"),
+                            "--max_batch", "8", "--max_len", "2048", "--max_tokens", "256",
+                            "--quantize", "int4-g128"])
+    got = _counts(counters)
+    eng = rep["engine"]
+    leaf = eng.params["layers"]["mlp"]["w_gate"]["kernel"]
+    if not (quantization.is_grouped(leaf) and leaf["q4"].dtype == torch.uint8):
+        raise AssertionError("serve_batch --quantize int4-g128: the layers are not int4-g128")
+    steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
+    groups = eng._prefill_groups + warm_buckets
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=n_layers * groups,
+                ragged_decode_attention=n_layers * (steps + 1),
+                activation1d_kernel=G_PER_ENCODE * len(PROMPT_SECONDS),
+                quant_matmul=(7 * n_layers + 1) * (steps + 1) + groups)
+    _check_counts(f"serve_batch --quantize int4-g128 ({eng._prefill_groups} prefill groups, "
+                  f"{steps} lockstep steps + 1 warmup step: {7 * n_layers + 1} quantized "
+                  "products a step, 1 a group prefill's head)", got, want)
+    samples = sum(_check_wav_file("serve_batch int4-g128", p) for p in rep["outputs"].values())
+    tokens = sum(len(c.tokens) for c in rep["completions"])
+    if len(rep["outputs"]) != len(BATCH_BUDGETS):
+        raise AssertionError(f"serve_batch int4-g128: {len(rep['outputs'])} wavs")
+    log(f"  serve_batch --quantize int4-g128: load and quantize {rep['load_s']:.2f} s, "
+        f"{tokens} tokens in {rep['gen_s']:.3f} s ({tokens / rep['gen_s']:.1f} tok/s, "
+        f"{1e3 * rep['gen_s'] / steps:.2f} ms per lockstep step), TTFT p50 "
+        f"{1e3 * np.percentile(rep['ttft_s'], 50):.1f} ms, {samples / 16000:.2f} s of audio")
+    add(got)
+    del rep, eng, leaf
+
+    # 5. single shot on a pre-quantized int8 dir the port's writer stores
+    q_dir = os.path.join(SERVING_DIR, "model_int8")
+    t0 = time.perf_counter()
+    hf_import.save_quantized_dir(quantization.quantize_llama_params(params, bits=8), cfg,
+                                 q_dir, bits=8)
+    size = sum(os.path.getsize(os.path.join(q_dir, f)) for f in os.listdir(q_dir))
+    log(f"serving: wrote {q_dir} (pre-quantized int8, {size / 2 ** 30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for c in counters:
+        c.launches = 0
+    out = os.path.join(SERVING_DIR, "single_int8.wav")
+    rep = serving_inference.main([
+        "--model_dir", q_dir, "--text", TEXT, "--output", out,
+        "--prompt_wav", wavs["p5s"], "--prompt_transcript", REQUESTS[1][2],
+        "--max_tokens", "128"])
+    res = rep["result"]
+    got = _counts(counters)
+    want = {c.__name__: 0 for c in counters}
+    want.update(flash_attention=n_layers, flash_decode_attention=n_layers * res.decode_steps,
+                activation1d_kernel=G_PER_ENCODE,
+                quant_matmul=(7 * n_layers + 1) * res.decode_steps + 1)
+    _check_counts("serving_inference, pre-quantized int8 dir", got, want)
+    n = _check_wav_file("serving_inference int8", out)
+    if not (np.isfinite(res.wav).all() and res.wav.shape == (1, n)):
+        raise AssertionError(f"serving_inference int8: wav {res.wav.shape}, file {n} samples")
+    log(f"  serving_inference int8 dir: load {rep['load_s']:.2f} s, prefill "
+        f"{1e3 * res.prefill_time:.2f} ms, {res.decode_steps} steps "
+        f"({res.decode_steps / res.decode_time:.1f} tok/s, "
+        f"{1e3 * res.decode_time / res.decode_steps:.3f} ms/step), {n / 16000:.2f} s of audio")
+    add(got)
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
     return totals
 
@@ -1555,6 +1786,7 @@ def main() -> int:
         paged_decode_attention_dense,
         paged_decode_attention_dma,
     )
+    from tts_max_tpu_torch.ops.quant_matmul import quant_matmul
     from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
     full_fp32()
@@ -1596,13 +1828,14 @@ def main() -> int:
     c = check_kernel_c(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     paged = check_paged(timer)
     g = check_kernel_g(timer)
+    quant = check_quant(timer)
     del timer
     check_small_model(tok, sv)
     check_small_engine(tok, sv)
     check_small_encoder()
     counters = [flash_attention, flash_decode_attention, ragged_decode_attention,
                 paged_decode_attention_dense, paged_decode_attention_dma,
-                paged_decode_attention, activation1d_kernel]
+                paged_decode_attention, activation1d_kernel, quant_matmul]
     model, params, cfg, codec, launches = run_main_path(tok, sv, counters)
     for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
                                counters).items():
@@ -1629,6 +1862,7 @@ def main() -> int:
         row(paged_decode_attention, "paged_decode.cu",
             "tts_max_tpu/ops/paged_attention.py:663", paged["F"]),
         row(activation1d_kernel, "act1d.cu", "tts_max_tpu/ops/pallas_act1d.py:137", g),
+        row(quant_matmul, "quant_matmul.cu", "tts_max_tpu/models/quantization.py:256", quant),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

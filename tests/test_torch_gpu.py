@@ -7,6 +7,8 @@ it runs without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -285,3 +287,79 @@ def test_paged_kernel_block_sizes_and_gqa(b, hq, d, bs, quant, lens):
     for fn in (pa.paged_decode_attention_dense, pa.paged_decode_attention_dma,
                pa.paged_decode_attention):
         torch.testing.assert_close(fn(q, k, v, table, lengths), ref, rtol=rtol, atol=atol)
+
+
+def _quant_close(out, ref):
+    from tts_max_tpu_torch.ops.quant_matmul import KERNEL_TOL
+
+    rtol, atol = KERNEL_TOL[out.dtype]
+    err = (out.float() - ref).abs()
+    assert bool((err <= rtol * ref.abs() + atol * ref.abs().max()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 7, 16])
+@pytest.mark.parametrize("form", [dict(bits=8), dict(bits=4), dict(bits=4, group_size=64),
+                                  dict(bits=4, group_size=128)],
+                         ids=["int8", "int4", "int4-g64", "int4-g128"])
+def test_quant_matmul_kernel_matches_plain(form, m, dtype):
+    """kn against the plain version in fp32, columns that differ (a swapped
+    nibble pair fails), N not a multiple of a tile's columns."""
+    _cuda()
+    from tts_max_tpu_torch.models.quantization import quantize_tensor
+    from tts_max_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(m)
+    w = torch.randn(512, 776, generator=g, device="cuda") * torch.linspace(
+        0.1, 2.0, 776, device="cuda")
+    p = quantize_tensor(w, 0, **form)
+    x = torch.randn(m, 512, generator=g, device="cuda").to(dtype)
+    before = qm.quant_matmul.launches
+    out = qm.quant_matmul(x, p)
+    assert out.dtype == dtype and qm.quant_matmul.launches == before + 1
+    _quant_close(out, qm.matmul_plain(x.float(), p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_head_kernels_match_plain(bits):
+    """vd on a tied head window, and kn through an untied window's row
+    stride (``llama.slice_logits_head``), against the plain versions."""
+    _cuda()
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.models.quantization import quantize_tensor
+    from tts_max_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(bits)
+    cfg = llama.tiny_config(vocab_size=700)
+    emb = torch.randn(700, cfg.dim, generator=g, device="cuda")
+    win = llama.slice_logits_head({"embed": {"embedding": quantize_tensor(emb, 1, bits=bits)}},
+                                  cfg, 40, 610)
+    untied = dataclasses.replace(cfg, tie_embeddings=False)
+    head = llama.slice_logits_head(
+        {"lm_head": {"kernel": quantize_tensor(emb.T.contiguous(), 0, bits=bits)}}, untied,
+        40, 610)
+    for m in (1, 5, 16):
+        h = torch.randn(m, cfg.dim, generator=g, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            x = h.to(dtype)
+            _quant_close(qm.quant_tied_logits(x, win), qm.tied_logits_plain(x.float(), win))
+            _quant_close(qm.quant_matmul(x, head), qm.matmul_plain(x.float(), head))
+
+
+@pytest.mark.gpu
+def test_quant_kernels_raise_on_what_they_do_not_take():
+    _cuda()
+    from tts_max_tpu_torch.models.quantization import quantize_tensor
+    from tts_max_tpu_torch.ops import quant_matmul as qm
+
+    p = quantize_tensor(torch.randn(64, 64, device="cuda"), 0)
+    x = torch.randn(2, 64, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        qm.quant_matmul(x, {"q": p["q"][:, 1:63], "scale": p["scale"][1:63]})
+    with pytest.raises(ValueError, match="dtype"):
+        qm.quant_matmul(x.half(), p)
+    emb = quantize_tensor(torch.randn(64, 64, device="cuda"), 1)
+    with pytest.raises(ValueError, match="16"):
+        qm.quant_tied_logits(x[:, :40], {"q": emb["q"][:, :40], "scale": emb["scale"]})

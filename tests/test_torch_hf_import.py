@@ -22,7 +22,6 @@ from safetensors.torch import save_file as st_save_torch
 
 from tts_max_tpu.models import hf_import as jhf
 from tts_max_tpu.models import llama as jl
-from tts_max_tpu.models import quantization as jq
 from tts_max_tpu_torch.models import hf_import as thf
 from tts_max_tpu_torch.models import llama as tl
 from tts_max_tpu_torch.models import safetensors_io
@@ -194,15 +193,3 @@ def test_two_shards_and_a_bin_dir_load(exported, tmp_path):
     empty.mkdir()
     with pytest.raises(FileNotFoundError):
         thf._load_hf_state_dict(str(empty))
-
-
-def test_a_quantized_dir_raises(tmp_path):
-    """A pre-quantized serving dir (written by the JAX package) is
-    recognised and refused with an error that says why: the port has no
-    weight-only quantized parameters."""
-    cfg = dataclasses.replace(jl.tiny_config(vocab_size=64), dtype=jnp.float32)
-    params = jq.quantize_llama_params(jl.init_params(jax.random.PRNGKey(6), cfg))
-    jhf.save_quantized_dir(params, cfg, str(tmp_path), bits=8)
-    assert thf.is_quantized_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="quantized"):
-        thf.load_serving_model(str(tmp_path), device="cpu")

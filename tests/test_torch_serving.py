@@ -295,8 +295,6 @@ def test_streaming_synthesizer_emits_the_decoder_stream(served):
 
 
 @pytest.mark.parametrize("cli,flag", [
-    (serving_inference, ["--quantize", "int8"]),
-    (serve_batch, ["--quantize"]),
     (serve_batch, ["--prefill_ahead"]),
     (serve_batch, ["--park_rows", "4"]),
     (serve_batch, ["--no_staged_cache"]),

@@ -18,32 +18,41 @@ from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models.codec.encoder import EncoderConfig
 from tts_max_tpu_torch.models.codec.vocos import VocosConfig
 from tts_max_tpu_torch.models.codec.w2vbert import W2VBertConfig
+from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.models.llama import LlamaConfig
 
 
 def _tree(tree, leaf, key=None):
     if isinstance(tree, dict):
-        if ("q" in tree or "q4" in tree) and "scale" in tree:
-            raise NotImplementedError("quantized weights are not ported yet")
         return {k: _tree(v, leaf, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree(v, leaf, key) for v in tree]
     return leaf(np.asarray(tree), key)
 
 
+# the integer levels of quantized leaves (models/quantization.py), kept as they are
+_LEVELS = {"q": np.int8, "q4": np.uint8}
+
+
 def llama_from_numpy(tree, cfg: LlamaConfig, device="cuda"):
     """SpeechLM parameters: matmul kernels and the embedding in
-    ``cfg.dtype``, norm scales in fp32."""
+    ``cfg.dtype``, norm scales in fp32; quantized leaves carried across as
+    int8 ``q`` and nibble-packed uint8 ``q4`` levels with fp32 scales."""
     dev = resolve_device(device)
 
     def leaf(a, key):
+        if key in _LEVELS:
+            if a.dtype != _LEVELS[key]:
+                raise ValueError(f"quantized levels {key!r} are {a.dtype}, not "
+                                 f"{np.dtype(_LEVELS[key])}")
+            return torch.from_numpy(np.array(a)).to(dev)
         dtype = cfg.dtype if key in ("kernel", "embedding") else torch.float32
         return torch.from_numpy(a.astype(np.float32)).to(device=dev, dtype=dtype)
 
     params = _tree(tree, leaf)
-    emb = params["embed"]["embedding"]
-    if emb.shape != (cfg.vocab_size, cfg.dim):
-        raise ValueError(f"embedding {tuple(emb.shape)} does not fit the config")
+    shape = llama.embedding_shape(params)
+    if shape != (cfg.vocab_size, cfg.dim):
+        raise ValueError(f"embedding {shape} does not fit the config")
     if cfg.tie_embeddings == ("lm_head" in params):
         raise ValueError("tie_embeddings disagrees with the presence of lm_head")
     return params

@@ -137,8 +137,8 @@ class InferenceEngine:
         ``device``: the card unless the caller asks for ``"cpu"``, where the
         kernels' plain versions run."""
         self.device = resolve_device(device)
-        if params["embed"]["embedding"].device != self.device:
-            raise ValueError(f"params live on {params['embed']['embedding'].device}, "
+        if llama.params_device(params) != self.device:
+            raise ValueError(f"params live on {llama.params_device(params)}, "
                              f"not on {self.device}")
         if admission_policy not in ("fifo", "shortest"):
             raise ValueError(f"unknown admission_policy {admission_policy!r}")

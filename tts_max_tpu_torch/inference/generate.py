@@ -64,8 +64,8 @@ def generate(
     ``generator`` draws the samples (unused when ``sp.temperature <= 0``).
     """
     dev = resolve_device(device)
-    if params["embed"]["embedding"].device != dev:
-        raise ValueError(f"params live on {params['embed']['embedding'].device}, "
+    if llama.params_device(params) != dev:
+        raise ValueError(f"params live on {llama.params_device(params)}, "
                          f"not on {dev}")
     tokens = torch.as_tensor(prompt_tokens, device=dev).to(torch.int32)
     # a copy: the loop advances lengths in place

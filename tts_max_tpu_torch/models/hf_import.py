@@ -6,10 +6,12 @@ shards from a local HF model directory into the stacked-layer parameter
 dict of ``models/llama.py``, on the device in ``cfg.dtype`` (norm scales in
 fp32); resizes the embedding (and lm_head) to a new vocab with
 mean-initialized rows drawn exactly as the JAX package draws them; and
-exports back to an HF-format directory for serving interchange.
-
-Pre-quantized serving directories (weight-only int8/int4) are recognised
-but not loaded: the port has no weight-only quantized parameters yet.
+exports back to an HF-format directory for serving interchange; and
+writes and loads pre-quantized serving directories (weight-only int8/int4
+levels and fp32 scales in ``model.quant.safetensors`` under the flattened
+``a/b/c`` names of the parameter tree, the geometry in
+``quantized_config.json``), in the JAX package's format, so that each side
+loads the other's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from tts_max_tpu_torch import convert
 from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models import llama, safetensors_io
 
@@ -258,17 +261,100 @@ def save_model_to_hf_dir(params: Any, cfg: llama.LlamaConfig, output_dir: str,
         json.dump(config, f, indent=2)
 
 
+# --- pre-quantized serving dirs -----------------------------------------------
+# int8/int4 levels straight from disk: 2x/4x smaller artifacts and loads, and
+# no quantization pass at start-up.
+
+_QUANT_WEIGHTS = "model.quant.safetensors"
+
+
+def _flatten_tree(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+        return out
+    out[prefix[:-1]] = tree
+    return out
+
+
+def _unflatten_tree(flat: dict[str, Any]) -> Any:
+    root: dict = {}
+    for path, v in flat.items():
+        node = root
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return root
+
+
+def save_quantized_dir(params: Any, cfg: llama.LlamaConfig, output_dir: str,
+                       bits: int) -> None:
+    """Write a quantized serving dir: the flattened parameter tree (int8
+    ``q`` levels, nibble-packed uint8 ``q4`` levels, fp32 scales and norms)
+    in ``model.quant.safetensors`` and the geometry in
+    ``quantized_config.json``."""
+    os.makedirs(output_dir, exist_ok=True)
+    safetensors_io.save_file(_flatten_tree(params), os.path.join(output_dir, _QUANT_WEIGHTS),
+                             metadata={"format": "np"})
+    manifest = {
+        "bits": bits,
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.dim,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.ffn_dim,
+        "rms_norm_eps": cfg.norm_eps,
+        "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_seq_len,
+        "tie_word_embeddings": cfg.tie_embeddings,
+        "use_llama3_rope_scaling": cfg.use_llama3_rope_scaling,
+    }
+    with open(os.path.join(output_dir, _QUANT_MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=2)
+
+
 def is_quantized_dir(model_dir: str) -> bool:
     return os.path.exists(os.path.join(model_dir, _QUANT_MANIFEST))
 
 
+def load_quantized_dir(model_dir: str, device="cuda", **cfg_over
+                       ) -> tuple[Any, llama.LlamaConfig]:
+    """(params on ``device``, cfg) of a quantized serving dir: the levels
+    as stored (int8, uint8), scales and norms in fp32, any unquantized
+    kernel in ``cfg.dtype``; ``cfg_over`` replaces config fields (e.g. the
+    compute ``dtype``)."""
+    with open(os.path.join(model_dir, _QUANT_MANIFEST)) as f:
+        m = json.load(f)
+    cfg = llama.LlamaConfig(
+        vocab_size=m["vocab_size"],
+        dim=m["hidden_size"],
+        n_layers=m["num_hidden_layers"],
+        n_heads=m["num_attention_heads"],
+        n_kv_heads=m["num_key_value_heads"],
+        head_dim=m["head_dim"],
+        ffn_dim=m["intermediate_size"],
+        norm_eps=m["rms_norm_eps"],
+        rope_theta=m["rope_theta"],
+        max_seq_len=m["max_position_embeddings"],
+        tie_embeddings=m["tie_word_embeddings"],
+        use_llama3_rope_scaling=m["use_llama3_rope_scaling"],
+    )
+    if cfg_over:
+        cfg = dataclasses.replace(cfg, **cfg_over)
+    flat = safetensors_io.load_file(os.path.join(model_dir, _QUANT_WEIGHTS))
+    tree = _unflatten_tree({k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                            for k, v in flat.items()})
+    return convert.llama_from_numpy(tree, cfg, device), cfg
+
+
 def load_serving_model(model_dir: str, device="cuda", **cfg_over
                        ) -> tuple[Any, llama.LlamaConfig]:
-    """Load a standard HF serving dir. A pre-quantized dir (the JAX
-    package's ``save_quantized_dir``) raises: its weight-only int8/int4
-    parameters have no counterpart in the port yet."""
+    """Load either a quantized serving dir or a standard HF dir, on
+    ``device``; ``cfg_over`` replaces config fields (e.g. ``dtype``)."""
     if is_quantized_dir(model_dir):
-        raise NotImplementedError(
-            f"{model_dir} is a pre-quantized serving dir ({_QUANT_MANIFEST}); the port "
-            "has no weight-only int8/int4 parameters yet: export it unquantized")
+        return load_quantized_dir(model_dir, device=device, **cfg_over)
     return load_model_from_hf_dir(model_dir, device=device, **cfg_over)

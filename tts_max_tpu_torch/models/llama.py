@@ -5,7 +5,11 @@ Parameters are a nested dict of tensors with the JAX package's names and
 layouts: dense kernels ``[in, out]`` (``x @ kernel``), layers stacked on a
 leading ``L`` axis, the tied embedding doubling as the LM head. Matmul
 weights and the embedding are stored in the compute dtype, norm scales in
-fp32.
+fp32; or, quantized for serving (``models/quantization.py``), as int8 or
+int4 levels with fp32 scales. Every weight read goes through
+``quantization.matmul``, ``embed_lookup`` and ``tied_logits``, as in the
+JAX package: a quantized product of a decode step runs the kernel of
+``ops/quant_matmul.py``.
 
 Attention goes through the port's kernels: ``flash_attention`` (kernel A)
 for every prefill, ``flash_decode_attention`` (kernel B) for a decode step
@@ -31,7 +35,13 @@ import torch.nn.functional as F
 
 from tts_max_tpu_torch.core.constants import FIXED_VOCAB_SIZE
 from tts_max_tpu_torch.device import resolve_device
-from tts_max_tpu_torch.models.quantization import quantize_tensor
+from tts_max_tpu_torch.models.quantization import (
+    embed_lookup,
+    is_quantized,
+    matmul,
+    quantize_tensor,
+    tied_logits,
+)
 from tts_max_tpu_torch.ops import paged_attention as pattn
 from tts_max_tpu_torch.ops.attention import window_attention
 from tts_max_tpu_torch.ops.flash_attention import flash_attention
@@ -178,27 +188,42 @@ def _layer(params: Params, i: int) -> Params:
     return walk(params["layers"])
 
 
+def params_device(params: Params) -> torch.device:
+    """The device the parameters live on (the embedding's)."""
+    emb = params["embed"]["embedding"]
+    return (emb["scale"] if is_quantized(emb) else emb).device
+
+
+def embedding_shape(params: Params) -> tuple[int, int]:
+    """[V, D] of the embedding, plain or quantized."""
+    emb = params["embed"]["embedding"]
+    if not is_quantized(emb):
+        return tuple(emb.shape)
+    q = emb["q4"] if "q4" in emb else emb["q"]
+    return q.shape[0], q.shape[1] * (2 if "q4" in emb else 1)
+
+
 def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    return params["embed"]["embedding"][tokens.long()].to(cfg.dtype)
+    return embed_lookup(params["embed"]["embedding"], tokens, cfg.dtype)
 
 
 def _attn_block(h, lp, cos, sin, cfg: LlamaConfig):
     b, s, _ = h.shape
     x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
-    q = (x @ lp["attn"]["wq"]["kernel"]).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ lp["attn"]["wk"]["kernel"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ lp["attn"]["wv"]["kernel"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = matmul(x, lp["attn"]["wq"]["kernel"]).view(b, s, cfg.n_heads, cfg.head_dim)
+    k = matmul(x, lp["attn"]["wk"]["kernel"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = matmul(x, lp["attn"]["wv"]["kernel"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=True)
-    return h + o.reshape(b, s, cfg.q_dim) @ lp["attn"]["wo"]["kernel"], k, v
+    return h + matmul(o.reshape(b, s, cfg.q_dim), lp["attn"]["wo"]["kernel"]), k, v
 
 
 def _mlp_block(h, lp, cfg: LlamaConfig):
     x = rms_norm(h, lp["mlp_norm"]["scale"], cfg.norm_eps)
-    gate = x @ lp["mlp"]["w_gate"]["kernel"]
-    up = x @ lp["mlp"]["w_up"]["kernel"]
-    return h + (F.silu(gate) * up) @ lp["mlp"]["w_down"]["kernel"]
+    gate = matmul(x, lp["mlp"]["w_gate"]["kernel"])
+    up = matmul(x, lp["mlp"]["w_up"]["kernel"])
+    return h + matmul(F.silu(gate) * up, lp["mlp"]["w_down"]["kernel"])
 
 
 def _logits(h, params: Params, cfg: LlamaConfig, logits_head=None):
@@ -207,18 +232,50 @@ def _logits(h, params: Params, cfg: LlamaConfig, logits_head=None):
     h = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
         head = params["embed"]["embedding"] if logits_head is None else logits_head
-        return (h @ head.T).float()
+        return tied_logits(h, head)
     head = params["lm_head"]["kernel"] if logits_head is None else logits_head
-    return (h @ head).float()
+    return matmul(h, head).float()
+
+
+def _column_window(levels: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Columns [a, b) of ``levels`` [K, X] as a view into a zero-padded
+    copy whose rows are a multiple of 16 bytes, so that the quantized
+    product reads 4-byte aligned rows through the view's row stride."""
+    cols = b - a
+    buf = levels.new_zeros(levels.shape[0], -(-cols // 16) * 16)
+    buf[:, :cols] = levels[:, a:b]
+    return buf[:, :cols]
 
 
 def slice_logits_head(params: Params, cfg: LlamaConfig, lo: int, size: int):
     """Output-head rows [lo, lo+size) for window-constrained decode, in the
     form ``_logits(..., logits_head=...)`` expects: embedding rows when
-    tied, kernel columns otherwise."""
+    tied, kernel columns otherwise (plain or quantized).
+
+    Only the speech-token block (and the markers after it) is a legal
+    output while speech is generated, so the head reads only those rows.
+    A quantized embedding is sliced along its vocab rows, which are never
+    the packed axis. A quantized lm_head is sliced along its columns: an
+    int4 one packs vocab pairs along them, so its bounds must be even, and
+    its levels are copied once into a buffer with aligned rows."""
     if cfg.tie_embeddings:
-        return params["embed"]["embedding"][lo:lo + size]
-    return params["lm_head"]["kernel"][:, lo:lo + size]
+        emb = params["embed"]["embedding"]
+        if is_quantized(emb):
+            return {k: v[lo:lo + size] for k, v in emb.items()}
+        return emb[lo:lo + size]
+    k = params["lm_head"]["kernel"]
+    if is_quantized(k):
+        out = {}
+        for key, v in k.items():
+            a, b = lo, lo + size
+            if key == "q4":  # [D, V/2]: vocab pairs packed along the last axis
+                if lo % 2 or size % 2:
+                    raise ValueError("int4 lm_head window bounds must be even")
+                a, b = lo // 2, (lo + size) // 2
+            out[key] = (v[..., a:b].contiguous() if key == "scale"
+                        else _column_window(v, a, b))
+        return out
+    return k[:, lo:lo + size]
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -402,15 +459,15 @@ def _decode_layers(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
-        q = (x @ lp["attn"]["wq"]["kernel"]).view(b, 1, cfg.n_heads, cfg.head_dim)
-        k = (x @ lp["attn"]["wk"]["kernel"]).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
-        v = (x @ lp["attn"]["wv"]["kernel"]).view(b, cfg.n_kv_heads, cfg.head_dim)
+        q = matmul(x, lp["attn"]["wq"]["kernel"]).view(b, 1, cfg.n_heads, cfg.head_dim)
+        k = matmul(x, lp["attn"]["wk"]["kernel"]).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
+        v = matmul(x, lp["attn"]["wv"]["kernel"]).view(b, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin, pos)[:, 0]
         k = apply_rope(k, cos, sin, pos)[:, 0]
         _write_cache(cache["k"], i, rows, k)
         _write_cache(cache["v"], i, rows, v)
         o = attend(i, q)
-        h = h + o.reshape(b, cfg.q_dim) @ lp["attn"]["wo"]["kernel"]
+        h = h + matmul(o.reshape(b, cfg.q_dim), lp["attn"]["wo"]["kernel"])
         h = _mlp_block(h, lp, cfg)
     return _logits(h, params, cfg, logits_head), cache
 
@@ -510,15 +567,15 @@ def decode_window(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
-        q = (x @ lp["attn"]["wq"]["kernel"]).view(b, w, cfg.n_heads, cfg.head_dim)
-        k = (x @ lp["attn"]["wk"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
-        v = (x @ lp["attn"]["wv"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
+        q = matmul(x, lp["attn"]["wq"]["kernel"]).view(b, w, cfg.n_heads, cfg.head_dim)
+        k = matmul(x, lp["attn"]["wk"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
+        v = matmul(x, lp["attn"]["wv"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin, pos)
         k = apply_rope(k, cos, sin, pos)
         _write_cache(cache["k"], i, rows, k)
         _write_cache(cache["v"], i, rows, v)
         o = window_attention(q, _layer_cache(cache["k"], i),
                              _layer_cache(cache["v"], i), lengths).to(h.dtype)
-        h = h + o.reshape(b, w, cfg.q_dim) @ lp["attn"]["wo"]["kernel"]
+        h = h + matmul(o.reshape(b, w, cfg.q_dim), lp["attn"]["wo"]["kernel"])
         h = _mlp_block(h, lp, cfg)
     return _logits(h, params, cfg, logits_head), cache

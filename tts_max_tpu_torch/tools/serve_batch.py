@@ -24,13 +24,15 @@ Runs on the card unless ``--device cpu`` is given:
       [--max_batch 8] [--max_len 2048] [--steps_per_dispatch 0] [--block_size 64] \\
       [--quantized_kv] [--no_prefix_cache] [--no_constrain] [--no_warmup] \\
       [--admission_policy fifo|shortest] [--max_tokens 1792] [--seed 42] \\
-      [--codec_decoder dec.pt --codec_encoder enc.pt] [--dtype bfloat16] [--device cuda]
+      [--codec_decoder dec.pt --codec_encoder enc.pt] \\
+      [--quantize [int8|int4|int4-g64|int4-g128]] [--dtype bfloat16] [--device cuda]
 
-Not taken (they fail in argparse): ``--quantize`` (waits for weight-only
-int8/int4 parameters), ``--prefill_ahead``, ``--park_rows``, ``--park_len``
-and ``--park_groups_per_poll`` (wait for the engine's prefill-ahead), and
-``--no_staged_cache`` (the port's decode kernels follow each slot's length,
-so it has no staged cache to turn off).
+``--quantize`` and pre-quantized dirs as in ``serving_inference``.
+
+Not taken (they fail in argparse): ``--prefill_ahead``, ``--park_rows``,
+``--park_len`` and ``--park_groups_per_poll`` (wait for the engine's
+prefill-ahead), and ``--no_staged_cache`` (the port's decode kernels follow
+each slot's length, so it has no staged cache to turn off).
 """
 
 from __future__ import annotations

@@ -23,11 +23,13 @@ Runs on the card unless ``--device cpu`` is given:
   python -m tts_max_tpu_torch.tools.serve_http --model_dir serving --port 8400 \\
       [--host 127.0.0.1] [the engine flags of serve_batch, without
       --no_prefix_cache] [--codec_decoder dec.pt --codec_encoder enc.pt] \\
-      [--dtype bfloat16] [--device cuda]
+      [--quantize [int8|int4|int4-g64|int4-g128]] [--dtype bfloat16] [--device cuda]
 
-Not taken (they fail in argparse): ``--quantize``, ``--prefill_ahead``,
-``--park_rows``, ``--park_len``, ``--park_groups_per_poll`` and
-``--no_staged_cache``, as in ``serve_batch``.
+``--quantize`` and pre-quantized dirs as in ``serving_inference``.
+
+Not taken (they fail in argparse): ``--prefill_ahead``, ``--park_rows``,
+``--park_len``, ``--park_groups_per_poll`` and ``--no_staged_cache``, as in
+``serve_batch``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Single-shot synthesis CLI (counterpart of ``tools/serving_inference.py``).
 
 Loads an HF-format serving directory (safetensors or ``.bin`` shards and
-``config.json``) and codec checkpoints, and synthesizes text into a 16 kHz
+``config.json``), or a pre-quantized one (``models/hf_import.save_quantized_dir``),
+and codec checkpoints, and synthesizes text into a 16 kHz
 wav through ``LocalTtsModel``. Without codec checkpoints it runs in smoke
 mode: a seeded tiny Vocos decoder and a seeded tiny codec encoder (with an
 all-zero semantic stream), as the JAX CLI does.
@@ -12,15 +13,21 @@ Runs on the card unless ``--device cpu`` is given:
       --text "Hello world" --output out.wav \\
       [--prompt_wav voice.wav --prompt_transcript "..."] [--voice_description "..."] \\
       [--codec_decoder dec.pt --codec_encoder enc.pt] [--max_tokens 1792] \\
-      [--temperature 0.8] [--seed 42] [--dtype bfloat16] [--device cuda]
+      [--temperature 0.8] [--seed 42] [--dtype bfloat16] [--device cuda] \\
+      [--quantize [int8|int4|int4-g64|int4-g128]]
 
-Not taken (they fail in argparse): ``--quantize``, which waits for the
-port's weight-only int8/int4 parameters.
+``--quantize`` (bare: ``int8``) quantizes the weights at load, weight-only:
+the dir's weights are read in fp32 and quantized on the device, leaf by
+leaf (``models/quantization.quantize_for_serving``); the layer products of
+a decode step then run the kernel of ``ops/quant_matmul.py``. A
+pre-quantized dir is served as it is, and ``--quantize`` is then ignored
+with a warning.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -31,7 +38,7 @@ from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer, speech_voc
 from tts_max_tpu_torch.data.audio_io import load_wav, save_wav
 from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.inference.synthesize import InferenceSettings, LocalTtsModel
-from tts_max_tpu_torch.models import hf_import
+from tts_max_tpu_torch.models import hf_import, quantization
 from tts_max_tpu_torch.models.codec import api, encoder as enc, vocos
 from tts_max_tpu_torch.utils.logging import get_logger, setup_logging
 
@@ -42,10 +49,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def add_model_args(parser: argparse.ArgumentParser) -> None:
     """The flags every serving CLI of the port shares: the model directory,
-    the codec checkpoints, the compute dtype and the device."""
+    the codec checkpoints, weight-only quantization, the compute dtype and
+    the device."""
     parser.add_argument("--model_dir", required=True)
     parser.add_argument("--codec_decoder", default="")
     parser.add_argument("--codec_encoder", default="")
+    parser.add_argument("--quantize", nargs="?", const="int8", default="",
+                        choices=["", "int8", "int4", "int4-g64", "int4-g128"],
+                        help="weight-only quantization of the SpeechLM: int8, int4 "
+                             "(per channel) or int4 in 64- or 128-row groups")
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
                         help="compute dtype of the SpeechLM (the JAX package's is bf16)")
     parser.add_argument("--device", default="cuda",
@@ -55,10 +67,20 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 def load_model(args):
     """(params, cfg, seconds) of the serving dir ``args.model_dir`` on
-    ``args.device`` in ``args.dtype``."""
+    ``args.device`` in ``args.dtype``, quantized as ``args.quantize`` asks
+    (weights read in fp32, as the JAX package imports them, then quantized
+    on the device); a pre-quantized dir is served as it is."""
     t0 = time.perf_counter()
-    params, cfg = hf_import.load_serving_model(args.model_dir, device=args.device,
-                                               dtype=DTYPES[args.dtype])
+    if args.quantize and hf_import.is_quantized_dir(args.model_dir):
+        log.warning("model dir is pre-quantized; ignoring --quantize")
+        args.quantize = ""
+    dtype = DTYPES[args.dtype]
+    params, cfg = hf_import.load_serving_model(
+        args.model_dir, device=args.device, dtype=torch.float32 if args.quantize else dtype)
+    if args.quantize:
+        params = quantization.quantize_for_serving(params, args.quantize)
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        log.info("Quantized weights (%s).", args.quantize)
     if resolve_device(args.device).type == "cuda":
         torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
