@@ -18,7 +18,9 @@ is bitwise its plain version's and G's SASS instructions an element, and
 the weight-only quantized product (kn: every layer kernel of Llama-3.2-1B
 and Llama-3.1-8B in int8, int4, int4-g64 and int4-g128 at 1, 8 and 16
 rows, the untied 8B head window; vd: the tied 1B head window, int8 and
-int4), beside cuBLAS on the dequantized weight. It checks the port's GPU
+int4), beside cuBLAS on the dequantized weight and the split-K CUDA-core
+kernel it replaced, every case launched twice and held bitwise equal, the
+library's SASS required to hold HMMA (tensor-core) instructions. It checks the port's GPU
 path against its CPU path on a small model, through ``generate`` (also
 quantized: int8 and int4-g64, greedy ids) and through the paged engine
 under each paged entry point, and on a small codec encoder. Then it drives the main paths at
@@ -121,16 +123,18 @@ def _sass(lib) -> str | None:
                           text=True, timeout=300).stdout
 
 
-def sass_counts(lib) -> str:
+SASS_OPS = ("HMMA", "LDGSTS", "LDSM")
+
+
+def sass_counts(lib) -> dict | None:
     """How many lines of a built library's SASS (over all its kernels) hold
     tensor-core (HMMA), cp.async (LDGSTS) and ldmatrix (LDSM) instructions,
-    as ``grep -c`` counts them."""
+    as ``grep -c`` counts them; None without cuobjdump."""
     text = _sass(lib)
     if text is None:
-        return "not measured (no cuobjdump)"
+        return None
     lines = text.splitlines()
-    return " ".join(f"{op}={sum(op in line for line in lines)}"
-                    for op in ("HMMA", "LDGSTS", "LDSM"))
+    return {op: sum(op in line for line in lines) for op in SASS_OPS}
 
 
 def _sass_functions(text: str) -> dict:
@@ -276,6 +280,13 @@ PREV_MS = {
     ("D", "B=1"): 0.0815, ("E", "B=1"): 0.0321, ("F", "B=1"): 0.0323,
     ("G", "block 1"): 0.1985, ("G", "block 2"): 0.1887, ("G", "block 3"): 0.1891,
     ("G", "block 4"): 0.1004, ("G", "block 5"): 0.0558, ("G", "final"): 0.0286,
+    # the quantized product's first kernel (split-K on the CUDA cores), bf16 x
+    ("Q", "1B w_gate/w_up int8 m=1"): 0.0213, ("Q", "1B w_gate/w_up int4-g128 m=1"): 0.0190,
+    ("Q", "1B wq/wo int8 m=1"): 0.0131, ("Q", "1B wk/wv int8 m=1"): 0.0115,
+    ("Q", "8B w_gate/w_up int8 m=1"): 0.0518, ("Q", "8B w_gate/w_up int4-g128 m=1"): 0.0455,
+    ("Q", "1B w_gate/w_up int8 m=16"): 0.0462, ("Q", "1B w_gate/w_up int4-g128 m=16"): 0.0372,
+    ("Q", "1B tied head int8 m=1"): 0.0601, ("Q", "1B tied head int8 m=8"): 0.1679,
+    ("Q", "1B tied head int8 m=16"): 0.3767,
 }
 
 
@@ -836,14 +847,17 @@ def check_quant(timer: Timer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(8)
     worst, worst_ratio, main, n_cases = 0.0, 0.0, None, 0
 
-    def case(label, x_of, run, plain, lib, p, n_out):
-        """Check one product at rows 1, 8, 16 in bf16 and fp32; time bf16."""
+    def case(label, key, x_of, run, plain, lib, p, n_out):
+        """Check one product at rows 1, 8, 16 in bf16 and fp32, two launches
+        bitwise equal; time bf16 beside the earlier kernel (``PREV_MS``)."""
         nonlocal worst, worst_ratio, n_cases
         times = []
         for m in QUANT_ROWS:
             for dtype in (bf, torch.float32):
                 x = x_of(m).to(dtype)
                 out = run(x)
+                if not torch.equal(out, run(x)):
+                    raise AssertionError(f"{label} m={m} {dtype}: two launches differ")
                 err, ratio = check_quant_close(out, plain(x.float()), f"{label} m={m} {dtype}")
                 worst, worst_ratio, n_cases = max(worst, err), max(worst_ratio, ratio), n_cases + 1
                 if dtype is bf:
@@ -853,8 +867,9 @@ def check_quant(timer: Timer) -> dict:
                                       library_ms=timer.ms(lambda: lib(x))))
         log(f"  {label:26s} " + "  ".join(
             f"m={m}: {t['ms']:.4f}/{t['bound_ms']:.4f}/{t['plain_ms']:.4f}/"
-            f"{t['library_ms']:.4f}" for m, t in zip(QUANT_ROWS, times))
-            + f" ({times[0]['bound_by']})")
+            f"{t['library_ms']:.4f}" + (f" prev={_prev('Q', f'{key} m={m}')}"
+                                        if ('Q', f'{key} m={m}') in PREV_MS else "")
+            for m, t in zip(QUANT_ROWS, times)) + f" ({times[0]['bound_by']})")
         return times
 
     for label, k, n in QUANT_SHAPES:
@@ -863,7 +878,7 @@ def check_quant(timer: Timer) -> dict:
         for mode, kw in QUANT_MODES.items():
             p = quantize_tensor(w, 0, **kw)
             wdeq = qm.dequantize(p, bf)
-            times = case(f"{label} {mode} [{k}, {n}]", lambda m: xs[:m],
+            times = case(f"{label} {mode} [{k}, {n}]", f"{label} {mode}", lambda m: xs[:m],
                          lambda x: qm.quant_matmul(x, p),
                          lambda x: qm.matmul_plain(x, p), lambda x: x @ wdeq, p, n)
             if label == "1B w_gate/w_up" and mode == "int8":
@@ -879,7 +894,8 @@ def check_quant(timer: Timer) -> dict:
     del w
     wdeq = qm.dequantize(head, bf)
     xs = torch.randn(max(QUANT_ROWS), cfg8.dim, generator=gen, device="cuda")
-    case(f"8B lm_head window int8 [{cfg8.dim}, {size}]", lambda m: xs[:m],
+    case(f"8B lm_head window int8 [{cfg8.dim}, {size}]", "8B lm_head window int8",
+         lambda m: xs[:m],
          lambda x: qm.quant_matmul(x, head), lambda x: qm.matmul_plain(x, head),
          lambda x: x @ wdeq, head, size)
     del head, wdeq
@@ -891,13 +907,14 @@ def check_quant(timer: Timer) -> dict:
         q = quantize_tensor(emb, 1, bits=bits)
         win = llama.slice_logits_head({"embed": {"embedding": q}}, cfg1, lo, size)
         wdeq = qm.dequantize(win, bf)
-        case(f"1B tied head int{bits} [{size}, {cfg1.dim}]", lambda m: xs[:m],
+        case(f"1B tied head int{bits} [{size}, {cfg1.dim}]", f"1B tied head int{bits}",
+             lambda m: xs[:m],
              lambda x: qm.quant_tied_logits(x, win), lambda x: qm.tied_logits_plain(x, win),
              lambda x: x @ wdeq.T, win, size)
         del q, win, wdeq
     del emb
-    log(f"  {n_cases} cases, all within tolerance: worst max_abs_err {worst:.3e}, "
-        f"{worst_ratio:.2f}x the tolerance at most")
+    log(f"  {n_cases} cases, all within tolerance and bitwise equal over two launches: "
+        f"worst max_abs_err {worst:.3e}, {worst_ratio:.2f}x the tolerance at most")
     return dict(max_abs_err=worst, **main)
 
 
@@ -1807,7 +1824,12 @@ def main() -> int:
             # slow path in act1d) is allowed, and logged on the same line
             if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
                 raise AssertionError(f"ptxas {name} spills: {line.strip()}")
-        log(f"  SASS {name}: {sass_counts(cuda_build.library_path(name))}")
+        counts = sass_counts(cuda_build.library_path(name))
+        log(f"  SASS {name}: " + ("not measured (no cuobjdump)" if counts is None else
+                                  " ".join(f"{op}={n}" for op, n in counts.items())))
+        # the quantized product's multiply-adds run on the tensor cores
+        if name == "quant_matmul" and not (counts and counts["HMMA"] > 0):
+            raise AssertionError(f"quant_matmul: no HMMA in its SASS ({counts})")
 
     tok = tokenization.build_byte_tokenizer()
     sv = tokenization.speech_vocab(tok)

@@ -299,13 +299,14 @@ def _quant_close(out, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m", [1, 7, 16])
+@pytest.mark.parametrize("m", [1, 9, 16])
 @pytest.mark.parametrize("form", [dict(bits=8), dict(bits=4), dict(bits=4, group_size=64),
                                   dict(bits=4, group_size=128)],
                          ids=["int8", "int4", "int4-g64", "int4-g128"])
 def test_quant_matmul_kernel_matches_plain(form, m, dtype):
     """kn against the plain version in fp32, columns that differ (a swapped
-    nibble pair fails), N not a multiple of a tile's columns."""
+    nibble pair fails), N not a multiple of a tile's columns, rows of 776
+    int8 or 388 int4 bytes (8- and 4-byte pieces); one and two n8 tiles."""
     _cuda()
     from tts_max_tpu_torch.models.quantization import quantize_tensor
     from tts_max_tpu_torch.ops import quant_matmul as qm
@@ -340,12 +341,33 @@ def test_quant_head_kernels_match_plain(bits):
     head = llama.slice_logits_head(
         {"lm_head": {"kernel": quantize_tensor(emb.T.contiguous(), 0, bits=bits)}}, untied,
         40, 610)
-    for m in (1, 5, 16):
+    for m in (1, 5, 9, 16):
         h = torch.randn(m, cfg.dim, generator=g, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             x = h.to(dtype)
             _quant_close(qm.quant_tied_logits(x, win), qm.tied_logits_plain(x.float(), win))
             _quant_close(qm.quant_matmul(x, head), qm.matmul_plain(x.float(), head))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,group", [(8, None), (4, 128)], ids=["int8", "int4-g128"])
+def test_quant_kernels_repeat_bitwise(bits, group):
+    """Two launches of kn (split over a cluster of K ranges) and of vd give
+    the same bits: the sums are added in a fixed order, with no atomics."""
+    _cuda()
+    from tts_max_tpu_torch.models.quantization import quantize_tensor
+    from tts_max_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(bits)
+    p = quantize_tensor(torch.randn(2048, 512, generator=g, device="cuda"), 0, bits=bits,
+                        group_size=group)
+    assert qm.plan(16, 2048, 512, bits, group)[1] > 1  # the sums cross blocks
+    emb = quantize_tensor(torch.randn(1000, 256, generator=g, device="cuda"), 1, bits=bits)
+    for m in (1, 16):
+        x = torch.randn(m, 2048, generator=g, device="cuda").bfloat16()
+        assert torch.equal(qm.quant_matmul(x, p), qm.quant_matmul(x, p))
+        h = torch.randn(m, 256, generator=g, device="cuda")
+        assert torch.equal(qm.quant_tied_logits(h, emb), qm.quant_tied_logits(h, emb))
 
 
 @pytest.mark.gpu

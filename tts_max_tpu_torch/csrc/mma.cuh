@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 paths of
-// kernel A (flash_attention.cu) and of the decode body decode_tc.cuh
-// (kernels B and C and the paged kernel).
+// kernel A (flash_attention.cu), of the decode body decode_tc.cuh (kernels
+// B and C and the paged kernel) and of the quantized product
+// (quant_matmul.cu).
 //
 // Fragment layouts of mma.m16n8k16 (row-major A 16x16, column-major B
 // 16x8, fp32 C 16x8), for lane = 4 * g + t:
@@ -41,6 +42,24 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill)
                : "memory");
 }
 
+// 4, 8 or 16 bytes (vec) global -> shared; with fill false nothing is read
+// and vec zero bytes are written. 16 bytes bypass L1 (.cg), as cp_async16.
+__device__ __forceinline__ void cp_async_vec(void* dst, const void* src, int vec, bool fill) {
+  const uint32_t d = smem_addr(dst);
+  if (vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(fill ? 16 : 0)
+                 : "memory");
+  else if (vec == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(fill ? 8 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(fill ? 4 : 0)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -54,6 +73,12 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -92,6 +117,22 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   const float2 hf = __bfloat1622float2(h);
   hi = bits(h);
   lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// The exact three-term split of a pair of fp32 values: hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid). Each residual is exact in fp32 and
+// holds at most 16, then 8, significant bits, so hi + mid + lo == x (24
+// bits): a product of an exact bf16 operand with each term is exact in fp32.
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = pack_bf16(rx - mf.x, ry - mf.y);
 }
 
 constexpr float LOG2E = 1.4426950408889634f;

@@ -27,11 +27,31 @@ version, the JAX package's formulas in torch. There is no fallback: a CUDA
 input within the kernel's rows that it does not take (a misaligned or
 strided tensor, an unknown form) raises.
 
-Numbers: the kernel sums in fp32 and rounds once to the output dtype. The
-JAX formula in bf16 rounds ``x @ q`` to bf16 and then multiplies by a bf16
-scale, so the two differ by up to about 2 bf16 ulps; in fp32 they agree to
-fp32 rounding. A grouped kernel multiplies each group's partial sums by the
-group's scale before adding them, as the JAX grouped formula does.
+The kernel (``csrc/quant_matmul.cu``, one launch a product, no scratch
+memory): both entries run ``mma.m16n8k16`` on the tensor cores with the
+levels widened exactly to bf16 as the A operand (16 output columns, or
+vocab rows, by 16 k) and x's rows as the n8 side (1-8 rows one tile, 9-16
+two; ``row_tiles``). kn streams 128 (or, for a narrow N, 64) bytes of
+every level row a block (``TILE_BYTES``) through an 8-stage ring of
+32-row stages in shared memory, 16 bytes a lane, and reads each warp's 32
+bytes with ``ldmatrix.trans``, which gives the fragment its k pairs in
+order and its 16 rows as columns 2g, 2g + 1 (int8) or 4g..4g + 3 (int4) of
+a 16-byte piece; the K ranges of a column tile form a thread-block
+cluster, as many as the card holds at once (``plan``, ``cluster_slots``),
+whose ranks add their sums in rank order through distributed shared
+memory. vd gives each warp two tiles of 16 vocab rows, loads two 16-byte
+pieces of a row a lane straight into registers and maps the fragment's k
+slots 2t, 2t+1, 2t+8, 2t+9 to the lane's four consecutive d's, reading h
+(staged once a block, ``vd_row_stride``) in the same order.
+
+Numbers: products are exact in fp32 (bf16 x is exact in bf16, fp32 x goes
+in as three bf16 terms); the tensor cores add at most one 32-row stage,
+group or chunk, and fp32 adds carry the sum; the kernel rounds once to the
+output dtype. The JAX formula in bf16 rounds ``x @ q`` to bf16 and then
+multiplies by a bf16 scale, so the two differ by up to about 2 bf16 ulps;
+in fp32 they agree to fp32 rounding. A grouped kernel multiplies each
+group's sums by the group's scale before adding them, as the JAX grouped
+formula does.
 """
 
 from __future__ import annotations
@@ -42,16 +62,21 @@ import functools
 import torch
 
 from tts_max_tpu_torch.ops import cuda_build
+from tts_max_tpu_torch.ops.flash_decode import sm_count
 
 R_MAX = 16  # most token rows a launch takes
-M_BUCKETS = (1, 2, 4, 8, 16)  # compiled row counts (csrc/quant_matmul.cu)
-WARPS = 4  # warps of a kn block; each sums one run of K rows
-RUNS = (128, 64, 32, 16, 8)  # K rows a warp may sum (multiples of UNROLL)
-UNROLL = 8  # K rows a thread loads before it multiplies
-RED_WARPS = 8  # warps of the second kernel's block, each over every 8th split
-TARGET_BLOCKS = 528  # four blocks for each of the H100's 132 SMs
+TILE_ROWS = 8  # token rows of an n8 tile of the tensor cores
+TILE_BYTES = (128, 64)  # bytes of every level row a kn block covers: 4 or 2 warps along N
+STAGE_ROWS = 32  # K rows of a stage of the kn ring
+STAGES = 8  # stages of the kn ring (7 in flight)
+KN_WARPS = 4  # warps of a kn block: 32 bytes of a tile each, along N, then along K
+CLUSTERS = (1, 2, 4, 8, 16)  # K splits of a column tile: its cluster's blocks
+TARGET_BLOCKS = 528  # kn blocks resident at once when the card is not asked (4 an SM, 132 SMs)
+NARROW_BLOCKS = 132  # fewer kn blocks than SMs on 128-byte tiles: take 64-byte ones
 VD_WARPS = 8
-VD_SMEM_MAX = 200 * 1024  # h staged in shared memory as fp32, 4 floats padding a 32
+VD_TILES = 2  # A tiles of 16 vocab rows a vd warp takes
+VD_PIECES = 2  # consecutive 16-byte pieces of a row a vd lane loads a chunk
+VD_SMEM_MAX = 200 * 1024  # h staged in shared memory as x's dtype, padded
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel against its plain version computed in fp32 on the same inputs,
 # by the kernel's output dtype: |out - ref| <= rtol |ref| + atol max|ref|.
@@ -137,52 +162,100 @@ def tied_logits_plain(h: torch.Tensor, emb: dict) -> torch.Tensor:
 # --- the launch rule ------------------------------------------------------------
 
 
-def m_bucket(m: int) -> int:
-    """The compiled row count that holds ``m`` rows (1 <= m <= R_MAX)."""
-    for b in M_BUCKETS:
-        if m <= b:
-            return b
-    raise ValueError(f"{m} rows > R_MAX = {R_MAX}")
+def row_tiles(m: int) -> int:
+    """n8 tiles of the tensor cores that hold ``m`` token rows (1 <= m <=
+    R_MAX): 1 up to 8 rows, 2 up to 16."""
+    if not 1 <= m <= R_MAX:
+        raise ValueError(f"{m} rows: a launch takes 1..R_MAX = {R_MAX} rows")
+    return -(-m // TILE_ROWS)
 
 
-def plan(m: int, k: int, n: int, bits: int, group: int | None = None
-         ) -> tuple[int, int, int, int]:
-    """(m_bucket, run, splits, tiles) of a kn launch.
+def plan(m: int, k: int, n: int, bits: int, group: int | None = None,
+         slots=None) -> tuple[int, int, int, int]:
+    """(nt, cs, tiles, tile) of a kn launch.
 
-    A thread owns one 32-bit word of a K row: 4 int8 or 8 int4 columns, so
-    a warp reads 128 consecutive bytes of the row and a block of ``WARPS``
-    warps covers 32 words (``tiles`` blocks along N). Each warp sums
-    ``run`` consecutive K rows, so a block covers ``WARPS * run`` rows
-    (``splits`` blocks along K, summed by the second kernel). A grouped
-    kernel's run divides the group size, so that a run lies in one group.
-    The rule takes the longest run (fewest partial sums) whose grid reaches
-    ``TARGET_BLOCKS``, shortening it no further once the fp32 partials
-    (written and read back) would move more bytes than the weight.
+    A block covers ``tile`` bytes of every level row (``tiles`` blocks along
+    N) over a K range of ``k / cs`` rows, a whole number of 32-row stages
+    (and of groups, grouped); the ``cs`` K ranges of a column tile are one
+    thread-block cluster, whose ranks add their sums in rank order. The rule
+    takes the most K splits (at most 16) whose clusters the card holds all
+    at once, so that the grid is one wave and every SM keeps as many ring
+    stages in flight as it can hold; where 128-byte tiles still give fewer
+    blocks than the card has SMs (``NARROW_BLOCKS``: a narrow N), it takes
+    64-byte tiles, two warps along N and two along K, for twice the blocks. ``slots(nt, tile,
+    cs)`` is how many clusters of ``cs`` blocks the card holds at once (the
+    wrapper asks the card, ``cluster_slots``); by default
+    ``TARGET_BLOCKS // cs``.
     """
-    mb = m_bucket(m)
+    nt = row_tiles(m)
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    words = -(-n // (32 // bits))
-    tiles = -(-words // 32)
-    runs = [r for r in RUNS
-            if k % (WARPS * r) == 0 and (group is None or group % r == 0)]
-    if not runs:
-        raise ValueError(f"K = {k} (group {group}) has no run of {RUNS} that divides it "
-                         f"in {WARPS} warps")
-    weight_bytes_per_col = k * bits / 8
-    run = runs[0]
-    for r in runs[1:]:
-        if tiles * (k // (WARPS * run)) >= TARGET_BLOCKS:
+    if k % STAGE_ROWS or (group is not None and group % STAGE_ROWS):
+        raise ValueError(f"K = {k} (group {group}): the kernel takes K and groups in "
+                         f"multiples of {STAGE_ROWS} rows")
+    splits = [c for c in CLUSTERS
+              if k % (c * STAGE_ROWS) == 0 and (group is None or (k // c) % group == 0)]
+    for tile in TILE_BYTES:
+        tiles = -(-(n * bits // 8) // tile)
+        fits = [c for c in splits
+                if tiles <= (slots(nt, tile, c) if slots is not None else TARGET_BLOCKS // c)]
+        cs = max(fits or [1])
+        if tiles * cs >= NARROW_BLOCKS:
             break
-        if 8 * (k // (WARPS * r)) * mb > weight_bytes_per_col:
-            break
-        run = r
-    return mb, run, k // (WARPS * run), tiles
+    return nt, cs, tiles, tile
 
 
-def vd_smem(mb: int, d: int) -> int:
-    """Shared memory of a vd launch: h as fp32 [mb, D + D/8] (padded)."""
-    return mb * (d + d // 8) * 4
+@functools.lru_cache(maxsize=None)
+def cluster_slots(index: int, bits: int, grouped: bool, x_dtype: int, nt: int, tile: int,
+                  cs: int) -> int:
+    """Clusters of ``cs`` kn blocks that CUDA device ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``), asked once."""
+    lib, got = _lib(), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.quant_matmul_kn_clusters(bits, int(grouped), x_dtype, nt, tile // 32, cs,
+                                           ctypes.byref(got))
+    cuda_build.check(lib, err, "quant_matmul_kn_clusters")
+    return got.value
+
+
+def _hpos(d: int) -> int:
+    """Where element d of a staged row of h lies (``hpos``): 8 elements of
+    padding after every 64."""
+    return d + 8 * (d // 64)
+
+
+@functools.lru_cache(maxsize=None)
+def vd_row_stride(d: int, bits: int, elem: int) -> int:
+    """Elements of a row of h staged for vd: D rounded up to whole chunks,
+    8 elements of padding after every 64, then the least further pad that
+    spreads the 16-byte reads of a phase (the 8 lanes g = 0, 1; t = 0..3)
+    over the most groups of 4 banks at every read of a chunk."""
+    lane_d = 128 * VD_PIECES // bits
+    chunk_d = 4 * lane_d
+    dc = -(-d // chunk_d) * chunk_d
+    base = _hpos(dc)
+    per = 16 // elem  # elements of a 16-byte read
+
+    def spread(hs: int) -> int:
+        return min(len({(g * hs + _hpos(lane_d * t + j)) * elem // 16 % 8
+                        for g in (0, 1) for t in range(4)})
+                   for j in range(0, lane_d, per))
+
+    return max(range(base, base + 128 // elem, per), key=lambda hs: (spread(hs), -hs))
+
+
+def vd_smem(nt: int, d: int, bits: int, elem: int) -> int:
+    """Shared memory of a vd launch: 8 nt staged rows of h."""
+    return TILE_ROWS * nt * vd_row_stride(d, bits, elem) * elem
+
+
+def vd_blocks(v: int, smem: int, index: int) -> int:
+    """Blocks of a vd launch: as many as fit on the card at once (two a SM
+    at most; h's shared memory decides), each warp walking tasks of
+    ``VD_TILES`` x 16 vocab rows."""
+    per_sm = max(1, min(2, (228 * 1024) // (smem + 1024)))
+    tasks = -(-v // (16 * VD_TILES))
+    return max(1, min(-(-tasks // VD_WARPS), per_sm * sm_count(index)))
 
 
 # --- the wrappers ---------------------------------------------------------------
@@ -195,6 +268,18 @@ def _check_cuda(x: torch.Tensor, tensors) -> None:
         raise ValueError(f"x dtype {x.dtype} not in {list(_X_DTYPES)}")
 
 
+def _aligned_rows(x: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """x as [m, k] contiguous rows on a 16-byte boundary (copied only when
+    the view starts elsewhere)."""
+    x2 = x.reshape(m, k).contiguous()
+    return x2 if x2.data_ptr() % 16 == 0 else x2.clone()
+
+
+def _vec(*values: int) -> int:
+    """The widest piece (16, 8 or 4 bytes) that divides every value, else 0."""
+    return next((v for v in (16, 8, 4) if all(a % v == 0 for a in values)), 0)
+
+
 def quant_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
     """x [..., K] @ a quantized kernel -> [..., N] in x's dtype.
 
@@ -202,9 +287,10 @@ def quant_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
     ``R_MAX`` rows (the product of x's leading dims): the kn kernel, which
     needs a levels tensor whose rows are 4-byte aligned with unit column
     stride (a column window of a wider kernel is taken as it is, through
-    its row stride), K a multiple of 32 (of the group, grouped), and fp32
-    scales, contiguous. With more rows: ``torch.matmul`` on the weight
-    dequantized to x's dtype."""
+    its row stride; 16-byte aligned rows load 16 bytes a lane), K a
+    multiple of 32 (and of the group, grouped; groups of a multiple of 32
+    rows), and fp32 scales, contiguous. With more rows: ``torch.matmul`` on
+    the weight dequantized to x's dtype."""
     if not is_quantized(p):
         raise ValueError("quant_matmul takes a quantized kernel {'q' or 'q4', 'scale'}")
     if x.device.type == "cpu":
@@ -236,17 +322,20 @@ def quant_matmul(x: torch.Tensor, p: dict) -> torch.Tensor:
     if scale.dtype != torch.float32 or not scale.is_contiguous():
         raise ValueError("scales must be contiguous float32")
     ldq = q.stride(0)
-    if q.stride(1) != 1 or ldq % 4 or q.data_ptr() % 4:
+    vec = _vec(ldq, q.data_ptr())
+    if q.stride(1) != 1 or not vec:
         raise ValueError("the levels' rows must be 4-byte aligned with unit column stride")
-    mb, run, splits, tiles = plan(m, k, n, 4 if packed else 8, group)
-    x2 = x.reshape(m, k).contiguous()
-    part = torch.empty(splits, m, n, dtype=torch.float32, device=x.device)
+    bits, xd = 4 if packed else 8, _X_DTYPES[x.dtype]
+    nt, cs, tiles, tile = plan(m, k, n, bits, group, functools.partial(
+        cluster_slots, x.device.index, bits, group is not None, xd))
+    x2 = _aligned_rows(x, m, k)
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     lib = _lib()
     err = lib.quant_matmul_kn(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), part.data_ptr(), y.data_ptr(),
-        m, k, n, ldq, 4 if packed else 8, group or 0, mb, run, splits, tiles,
-        _X_DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, k, n, ldq, bits,
+        group or 0, nt, tile // 32, cs, tiles, vec.bit_length() - 1,
+        16 if _vec(n * 4, scale.data_ptr()) == 16 else 4, xd,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, "quant_matmul_kn")
     quant_matmul.launches += 1
     return y.reshape(*lead, n)
@@ -264,8 +353,8 @@ def quant_tied_logits(h: torch.Tensor, emb: dict) -> torch.Tensor:
     On a CPU tensor: the plain version. On a CUDA tensor with at most
     ``R_MAX`` rows: the vd kernel, which reads each embedding row in 16-byte
     pieces (rows of a multiple of 16 bytes, 16-byte aligned, contiguous;
-    D a multiple of 32, and the rows of h in its shared memory: 16 rows
-    up to D = 2816, Llama-3.2-1B's 2048).
+    D a multiple of 32, and the rows of h in its shared memory: 16 bf16
+    rows up to D = 5632, fp32 ones up to D = 2816; Llama-3.2-1B's 2048).
     With more rows: ``torch.matmul`` on the dequantized embedding."""
     if not is_quantized(emb):
         raise ValueError("quant_tied_logits takes a quantized embedding")
@@ -290,37 +379,30 @@ def quant_tied_logits(h: torch.Tensor, emb: dict) -> torch.Tensor:
         raise ValueError("the embedding's rows must be contiguous, a multiple of 16 bytes "
                          "and 16-byte aligned (the kernel loads 16-byte pieces), D a "
                          "multiple of 32")
-    mb = m_bucket(m)
-    if vd_smem(mb, d) > VD_SMEM_MAX:
+    bits, nt, elem = 4 if packed else 8, row_tiles(m), h.element_size()
+    smem = vd_smem(nt, d, bits, elem)
+    if smem > VD_SMEM_MAX:
         raise ValueError(f"{m} rows of h at D = {d} do not fit the kernel's shared memory")
-    h2 = h.reshape(m, d).contiguous()
+    h2 = _aligned_rows(h, m, d)
     out = torch.empty(m, v, dtype=torch.float32, device=h.device)
     lib = _lib()
     err = lib.quant_matmul_vd(
-        h2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, d, v,
-        4 if packed else 8, mb, vd_blocks(v, mb, d, h.device), _X_DTYPES[h.dtype],
+        h2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, d, v, bits, nt,
+        vd_row_stride(d, bits, elem), vd_blocks(v, smem, h.device.index), _X_DTYPES[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream)
     cuda_build.check(lib, err, "quant_matmul_vd")
     quant_matmul.launches += 1
     return out.reshape(*lead, v)
 
 
-def vd_blocks(v: int, mb: int, d: int, device: torch.device) -> int:
-    """Blocks of a vd launch: as many as fit on the card at once (h's
-    shared memory decides), each walking vocab rows a warp at a time."""
-    from tts_max_tpu_torch.ops.flash_decode import sm_count
-
-    smem = vd_smem(mb, d)
-    per_sm = max(1, min(2048 // (32 * VD_WARPS), (228 * 1024) // (smem + 1024)))
-    return max(1, min(-(-v // VD_WARPS), per_sm * sm_count(device.index)))
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("quant_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.quant_matmul_kn.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
+    lib.quant_matmul_kn.argtypes = [p, p, p, p] + [i] * 13 + [p]
     lib.quant_matmul_kn.restype = i
-    lib.quant_matmul_vd.argtypes = [p, p, p, p] + [i] * 7 + [p]
+    lib.quant_matmul_vd.argtypes = [p, p, p, p] + [i] * 8 + [p]
     lib.quant_matmul_vd.restype = i
+    lib.quant_matmul_kn_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.quant_matmul_kn_clusters.restype = i
     return lib
