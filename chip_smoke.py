@@ -29,8 +29,12 @@ encoder with wav2vec-BERT 2.0, random weights from seeds: text and a 5 s or
 22 s prompt wav to waveform through ``LocalTtsModel.synthesize_speech`` (the
 prompt encode split into host features, w2v-bert and the acoustic encoder),
 the serving engines (``inference/engine.py``: paged with prefix caching,
-paged int8 KV, contiguous, paged under the ``grid`` entry point), vocoding
-every completion, and the three serving CLIs (``tts_max_tpu_torch/tools``:
+paged int8 KV, contiguous, paged under the ``grid`` entry point, then with
+prefill-ahead: contiguous beside the same requests without it, and paged
+with the prefix cache), vocoding every completion, speculative decoding
+(``inference/speculative.py``: fp32 with the target as its own draft, whose
+ids must equal greedy ``generate``'s, and bf16 with a 2-layer draft beside
+plain ``generate``), and the three serving CLIs (``tts_max_tpu_torch/tools``:
 single shot, a JSONL batch, the HTTP server with a streamed request) on an
 HF directory of the main path's weights that the port's writer stores in
 BF16, then the batch CLI with ``--quantize int4-g128`` on it and the single
@@ -1357,14 +1361,17 @@ def engine_prompt(tok, normalizer, encoder, kind: str, i: int):
 
 
 def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
-                 cancel: int | None = None) -> dict:
+                 cancel: int | None = None, report: dict | None = None) -> dict:
     """Warm ``eng`` up, set the counters to 0, submit ``reqs`` (dicts: ids,
     codes, budget, seed, optional sampling and min_tokens) at once, drive it
     with ``run_iter`` (cancelling request ``cancel`` after the first poll)
     with every host sync torch can see flagged, read the counters, check
-    them against the engine's own counts, that the run made no host sync
-    besides each dispatch's blob wait (which the debug mode does not flag),
-    and every completion, and vocode each. Returns the launch counts."""
+    them against the engine's own counts (group prefills and park groups
+    run kernel A), that the run made no host sync besides each dispatch's
+    blob wait and each park read (which the debug mode does not flag), and
+    every completion, and vocode each. Returns the launch counts; fills
+    ``report`` with each request's tokens, TTFTs, tokens/s and ms per
+    lockstep step."""
     lo, size = sv.generation_window()
     buckets = tuple(sorted({-(-len(r["ids"]) // 64) * 64 for r in reqs}))
     eng.warmup(prompt_buckets=buckets)
@@ -1409,11 +1416,11 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
     steps = dispatches * eng.steps_per_dispatch
     n_layers = eng.cfg.n_layers
     want = {c.__name__: 0 for c in counters}
-    want["flash_attention"] = n_layers * eng._prefill_groups
+    want["flash_attention"] = n_layers * (eng._prefill_groups + eng._park_groups)
     want[decode_kernel] = n_layers * steps
     log(f"  {label}: launch counts {got} (expected {want}: {eng._prefill_groups} group "
-        f"prefills, {eng._suffix_admissions} suffix admissions, {dispatches} dispatches "
-        f"x K={eng.steps_per_dispatch})")
+        f"prefills, {eng._park_groups} park groups, {eng._suffix_admissions} suffix "
+        f"admissions, {dispatches} dispatches x K={eng.steps_per_dispatch})")
     if got != want:
         raise AssertionError(f"{label}: launch counts {got} != expected {want}")
     # the first switch into "warn" in a process flags itself; it is not the engine's
@@ -1426,7 +1433,7 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
     if syncs:
         raise AssertionError(f"{label}: host syncs besides the blob waits: {dict(where)}")
 
-    gen_tokens, audio_s, ttft = 0, 0.0, []
+    gen_tokens, audio_s, ttft, tokens = 0, 0.0, [], []
     t_voc = time.perf_counter()
     for r, rid in zip(reqs, rids):
         if rid == cancelled:
@@ -1437,6 +1444,9 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
         if c is None or c.finish_reason not in ("eos", "length"):
             raise AssertionError(f"{label}: request {rid} did not complete: {c}")
         toks = np.asarray(c.tokens)
+        if not (len(toks) == r["budget"] or toks[-1] == sv.speech_end_id):
+            raise AssertionError(f"{label}: request {rid} ended early: {len(toks)} tokens")
+        tokens.append(toks)
         if not ((toks >= lo) & (toks < lo + size)).all():
             raise AssertionError(f"{label}: request {rid} left the window: {toks}")
         gen = sv.codes_from_tokens(toks)
@@ -1450,6 +1460,9 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
     wall = t_end - t0
     hits = (f", prefix hits {stats['prefix_cache_hits']} misses "
             f"{stats['prefix_cache_misses']}" if "prefix_cache_hits" in stats else "")
+    if eng.prefill_ahead:
+        hits += (f", {stats['parked_total']} requests parked in {eng._park_groups} park "
+                 f"groups")
     log(f"  {label}: wall {wall:.3f} s, {gen_tokens} tokens, {gen_tokens / wall:.1f} tok/s, "
         f"{1e3 * wall / steps:.2f} ms per lockstep step over the run and "
         f"{1e3 * (t_end - t_first) / max(steps - eng.steps_per_dispatch, 1):.2f} after the "
@@ -1458,11 +1471,14 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
         f"{1e3 * np.percentile(ttft, 95):.1f} ms (host clock){hits}; {audio_s:.2f} s of "
         f"audio, {wall / audio_s:.4f} s of wall per s of audio; vocoded "
         f"{len(ttft)} wavs in {voc_s:.2f} s")
+    if report is not None:
+        report.update(tokens=tokens, ttft=ttft, tok_s=gen_tokens / wall,
+                      ms_step=1e3 * wall / steps)
     return got
 
 
 def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
-    """e1-e4 at full width; returns the launch counts summed over them."""
+    """e1-e6 at full width; returns the launch counts summed over them."""
     from tts_max_tpu_torch.data import normalization
     from tts_max_tpu_torch.inference.engine import InferenceEngine, PagedInferenceEngine
     from tts_max_tpu_torch.ops.sampling import SamplingParams
@@ -1524,6 +1540,180 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
     eng = InferenceEngine(params, cfg, **common)
     add(drive_engine("e3 contiguous bf16, 8 requests", eng, reqs(order, [256] * 8), decoder,
                      sv, counters, "ragged_decode_attention"))
+    del eng
+
+    # e5: contiguous with prefill-ahead (K = 32, the CLIs' auto value with it;
+    # park_len 512, 8 park rows): 16 requests that park while the pool is full
+    # (the voice descriptions and 5 s takes, each twice with other seeds) and
+    # two 22 s takes longer than park_len, which queue; beside it the same
+    # requests without prefill-ahead
+    parked_kw = dict(common, steps_per_dispatch=32)
+    order = [("desc", i) for i in range(4)] + [("p5s", i) for i in range(4)]
+    e5 = reqs(order + order + [("p22s", 0), ("p22s", 1)], [128] * 18)
+    runs = {}
+    for ahead in (True, False):
+        eng = InferenceEngine(params, cfg, prefill_ahead=ahead, **parked_kw)
+        runs[ahead] = {}
+        add(drive_engine(f"e5 contiguous bf16, prefill_ahead={ahead}, 18 requests", eng, e5,
+                         decoder, sv, counters, "ragged_decode_attention",
+                         report=runs[ahead]))
+        if ahead:
+            _check_parked("e5", eng)
+        del eng
+    same = sum(np.array_equal(a, b) for a, b in zip(runs[True]["tokens"], runs[False]["tokens"]))
+    log("  e5 with / without prefill-ahead: TTFT p50 "
+        + " / ".join(f"{1e3 * np.percentile(runs[a]['ttft'], 50):.1f}" for a in (True, False))
+        + " ms, p95 "
+        + " / ".join(f"{1e3 * np.percentile(runs[a]['ttft'], 95):.1f}" for a in (True, False))
+        + " ms, " + " / ".join(f"{runs[a]['tok_s']:.1f}" for a in (True, False))
+        + " tok/s, " + " / ".join(f"{runs[a]['ms_step']:.2f}" for a in (True, False))
+        + f" ms per lockstep step; {same} of {len(e5)} requests give the same tokens "
+        "(not asserted: in bf16 a park group's prefill and a queued group's may differ "
+        "in rows and bucket, and so in rounding)")
+    # requests 8-15 wait for a slot: they park with prefill-ahead
+    log("  e5 TTFT of requests 8-15 (parked with prefill-ahead) with / without it: "
+        + ", ".join(f"{name} " + " / ".join(
+            f"{1e3 * fn(runs[a]['ttft'][8:16]):.1f}" for a in (True, False)) + " ms"
+            for name, fn in (("min", np.min), ("median", np.median), ("max", np.max))))
+
+    # e6: paged with prefill-ahead and the prefix cache, entry D, 4 slots,
+    # 64 tokens each: two voice descriptions park while the first four run,
+    # and the second takes on the 5 s and 22 s prompts, prefix-cache hits,
+    # take the queued suffix path
+    order = [("p5s", 0), ("desc", 0), ("desc", 1), ("p22s", 0), ("desc", 2), ("desc", 3),
+             ("p5s", 1), ("p22s", 1)]
+    eng = PagedInferenceEngine(params, cfg, block_size=64, enable_prefix_cache=True,
+                               prefill_ahead=True, **dict(parked_kw, max_batch=4))
+    add(drive_engine("e6 paged bf16 dense, prefix cache, prefill_ahead, 8 requests", eng,
+                     reqs(order, [64] * 8), decoder, sv, counters,
+                     "paged_decode_attention_dense"))
+    _check_parked("e6", eng)
+    if not (eng._suffix_admissions >= 1 and eng.prefix_cache_hits > 0):
+        raise AssertionError(f"e6: {eng._suffix_admissions} suffix admissions, "
+                             f"{eng.prefix_cache_hits} prefix hits")
+    free = len(eng._free_blocks) + len(eng._evictable)
+    if free != eng.num_blocks - 1:
+        raise AssertionError(f"e6: {free} free + evictable blocks of {eng.num_blocks - 1}")
+    log(f"  e6: {eng._suffix_admissions} suffix admissions, blocks balanced ({free} free + "
+        f"evictable of {eng.num_blocks - 1})")
+    return totals
+
+
+def _check_parked(label, eng) -> None:
+    """Prefill-ahead ran and left nothing behind: requests parked, every park
+    row free again (every attached slot's first decode step re-derived its
+    preview, or the engine would have raised)."""
+    st = eng.stats()
+    if not (st["parked_total"] > 0 and st["parked_requests"] == 0
+            and st["free_park_rows"] == st["park_rows"] and eng._park_groups > 0):
+        raise AssertionError(f"{label}: prefill-ahead stats {st}, {eng._park_groups} park groups")
+
+
+# --- speculative decoding at full width -----------------------------------------
+
+
+def run_speculative(tok, sv, params, cfg, encoder, counters) -> dict:
+    """sp1: fp32 Llama-3.2-1B as both draft and target (TF32 off), batch 2 on
+    request (b)'s prompt, 64 tokens, gamma 4, greedy: the ids of fp32 greedy
+    ``generate``, every candidate accepted. sp2: bf16, a 2-layer draft of the
+    1B widths (seed 1) for the 1B target, batch 4 (the voice descriptions),
+    128 tokens, gamma 4, temperature 0.9, top-k 50, beside plain ``generate``
+    at the same batch and budget. Returns the launch counts of both."""
+    import dataclasses
+
+    from tts_max_tpu_torch.data import normalization
+    from tts_max_tpu_torch.inference.generate import generate
+    from tts_max_tpu_torch.inference.speculative import speculative_generate
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+
+    window = sv.generation_window()
+    lo, size = window
+    gamma, n_layers = 4, cfg.n_layers
+    normalizer = normalization.create()
+    totals = {c.__name__: 0 for c in counters}
+
+    def count(want, label):
+        got = _counts(counters)
+        _check_counts(label, got, {**{c.__name__: 0 for c in counters}, **want})
+        for k, v in got.items():
+            totals[k] += v
+        for c in counters:
+            c.launches = 0
+
+    # sp1
+    ids = engine_prompt(tok, normalizer, encoder, "p5s", 0)[0]
+    prompt = np.stack([ids, ids])
+    lens = [len(ids)] * 2
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = llama._map(lambda t: t.float() if t.is_floating_point() else t, params)
+    greedy = SamplingParams(temperature=0.0)
+    for c in counters:
+        c.launches = 0
+    res = speculative_generate(params32, cfg32, params32, cfg32, prompt, lens, None, sp=greedy,
+                               max_new_tokens=64, eos_id=-1, gamma=gamma, vocab_window=window)
+    count({"flash_attention": 2 * n_layers,
+           "flash_decode_attention": n_layers * (gamma + 1) * res.steps}, "sp1 speculative")
+    ref = generate(params32, cfg32, prompt, lens, None, sp=greedy, max_new_tokens=64,
+                   eos_id=-1, vocab_window=window)
+    count({"flash_attention": n_layers, "flash_decode_attention": n_layers * ref.steps},
+          "sp1 generate")
+    same = torch.equal(res.tokens, ref.tokens)
+    log(f"  sp1 fp32 draft = target, batch 2, {len(ids)}-token prompt, 64 tokens, gamma "
+        f"{gamma}, greedy: {res.steps} rounds (want {-(-63 // (gamma + 1))}), ids equal to "
+        f"generate's: {same}; {1e3 * res.decode_time / res.steps:.2f} ms per round, "
+        f"generate {1e3 * ref.decode_time / ref.steps:.2f} ms per step")
+    if not (same and res.steps == -(-63 // (gamma + 1))):
+        raise AssertionError(f"sp1: {res.steps} rounds; ids {res.tokens.tolist()} vs generate "
+                             f"{ref.tokens.tolist()}")
+    del params32, res, ref
+
+    # sp2
+    draft_cfg = llama.llama32_1b_config(n_layers=2)
+    draft = llama.init_params(draft_cfg, seed=1, device="cuda")
+    rows = [engine_prompt(tok, normalizer, encoder, "desc", i)[0] for i in range(4)]
+    lens = [len(r) for r in rows]
+    prompt = np.zeros((4, max(lens)), np.int32)
+    for i, r in enumerate(rows):
+        prompt[i, :len(r)] = r
+    sp = SamplingParams(temperature=0.9, top_k=50)
+    finite = []
+    decode_window = llama.decode_window
+
+    def checked(*args, **kw):  # every verify pass's logits, read after the run
+        logits, cache = decode_window(*args, **kw)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    llama.decode_window = checked
+    try:
+        res = speculative_generate(params, cfg, draft, draft_cfg, prompt, lens,
+                                   torch.Generator(device="cuda").manual_seed(7), sp=sp,
+                                   max_new_tokens=128, eos_id=sv.speech_end_id, gamma=gamma,
+                                   vocab_window=window)
+    finally:
+        llama.decode_window = decode_window
+    count({"flash_attention": n_layers + draft_cfg.n_layers,
+           "flash_decode_attention": draft_cfg.n_layers * (gamma + 1) * res.steps},
+          "sp2 speculative")
+    ref = generate(params, cfg, prompt, lens, torch.Generator(device="cuda").manual_seed(7),
+                   sp=sp, max_new_tokens=128, eos_id=sv.speech_end_id, vocab_window=window)
+    count({"flash_attention": n_layers, "flash_decode_attention": n_layers * ref.steps},
+          "sp2 generate")
+    toks, n_gen = res.tokens.cpu().numpy(), res.num_generated.cpu().numpy()
+    for row, n in zip(toks, n_gen):
+        if not (((row[:n] >= lo) & (row[:n] < lo + size)).all()
+                and (n == 128 or row[n - 1] == sv.speech_end_id)):
+            raise AssertionError(f"sp2: a row of {n} tokens: {row[:n]}")
+    if not (len(finite) == res.steps and bool(torch.stack(finite).all())):
+        raise AssertionError(f"sp2: non-finite verify logits in {len(finite)} rounds")
+    per_round = float(np.mean((n_gen - 1) / res.steps))
+    log(f"  sp2 bf16, 2-layer draft, batch 4, 128 tokens, gamma {gamma}, temperature 0.9, "
+        f"top-k 50: {res.steps} rounds, {per_round:.3f} tokens per round a row, "
+        f"{int(n_gen.sum()) / res.decode_time:.1f} tok/s ({1e3 * res.decode_time:.1f} ms); "
+        f"generate: {ref.steps} steps, "
+        f"{int(ref.num_generated.sum()) / ref.decode_time:.1f} tok/s "
+        f"({1e3 * ref.decode_time:.1f} ms); verify logits finite in every round")
     return totals
 
 
@@ -1862,6 +2052,11 @@ def main() -> int:
     for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
                                counters).items():
         launches[name] += n
+    log("speculative decoding: Llama-3.2-1B target, window (262, 65542)")
+    t_sp = time.perf_counter()
+    for name, n in run_speculative(tok, sv, params, cfg, codec.encoder, counters).items():
+        launches[name] += n
+    log(f"  sp1 + sp2 wall {time.perf_counter() - t_sp:.1f} s")
     for name, n in run_serving(tok, sv, params, cfg, counters).items():
         launches[name] += n
     log(f"launch counts summed over the main paths: {launches}")

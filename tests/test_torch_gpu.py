@@ -385,3 +385,71 @@ def test_quant_kernels_raise_on_what_they_do_not_take():
     emb = quantize_tensor(torch.randn(64, 64, device="cuda"), 1)
     with pytest.raises(ValueError, match="16"):
         qm.quant_tied_logits(x[:, :40], {"q": emb["q"][:, :40], "scale": emb["scale"]})
+
+
+def _small_lm(seed, layers=2):
+    """A small fp32 model whose head_dim (64) the kernels take, on the card."""
+    from tts_max_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=layers, n_heads=4,
+                            n_kv_heads=2, head_dim=64, ffn_dim=512, dtype=torch.float32)
+    return cfg, llama.init_params(cfg, seed=seed, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_prefill_ahead_on_the_card(paged):
+    """A saturated 2-slot pool with prefill-ahead, sampled: every attached
+    slot's first decode step re-derives its park preview (the engine raises
+    otherwise), every request completes, the park rows are recycled, and the
+    park prefills ran kernel A."""
+    _cuda()
+    import numpy as np
+
+    from tts_max_tpu_torch.inference.engine import InferenceEngine, PagedInferenceEngine
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, params = _small_lm(11)
+    cls = PagedInferenceEngine if paged else InferenceEngine
+    extra = dict(block_size=64, enable_prefix_cache=True) if paged else {}
+    eng = cls(params, cfg, max_batch=2, max_len=256, steps_per_dispatch=4,
+              sp=SamplingParams(temperature=0.9, top_k=20), prefill_ahead=True, park_rows=4,
+              **extra)
+    eng.warmup(prompt_buckets=(64,))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 512, n).astype(np.int32) for n in (9, 40, 17, 70, 5, 33, 12, 60)]
+    flash_attention.launches = 0
+    done = eng.generate_all(prompts, max_new_tokens=24, eos_id=-1)
+    st = eng.stats()
+    assert [len(c.tokens) for c in done] == [24] * 8
+    assert st["parked_total"] > 0 and st["free_park_rows"] == 4 and not eng.has_work()
+    assert flash_attention.launches == cfg.n_layers * (eng._prefill_groups + eng._park_groups)
+    assert eng._park_groups > 0
+    if paged:
+        assert len(eng._free_blocks) + len(eng._evictable) == eng.num_blocks - 1
+
+
+@pytest.mark.gpu
+def test_speculative_draft_equal_to_target_on_the_card():
+    """fp32, draft = target, greedy: the ids equal greedy ``generate`` and
+    every candidate is accepted; the prefills ran kernel A and the draft
+    steps kernel B."""
+    _cuda()
+    import numpy as np
+
+    from tts_max_tpu_torch.inference.generate import generate
+    from tts_max_tpu_torch.inference.speculative import speculative_generate
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+
+    cfg, params = _small_lm(12)
+    toks = np.random.default_rng(1).integers(1, 512, (2, 20)).astype(np.int32)
+    lens = [20, 20]
+    sp = SamplingParams(temperature=0.0)
+    flash_attention.launches = flash_decode_attention.launches = 0
+    res = speculative_generate(params, cfg, params, cfg, toks, lens, None, sp=sp,
+                               max_new_tokens=32, eos_id=-1, gamma=4)
+    assert flash_attention.launches == 2 * cfg.n_layers
+    assert flash_decode_attention.launches == (4 + 1) * res.steps * cfg.n_layers
+    ref = generate(params, cfg, toks, lens, None, sp=sp, max_new_tokens=32, eos_id=-1)
+    assert torch.equal(res.tokens, ref.tokens)
+    assert res.steps == -(-31 // 5)

@@ -7,8 +7,8 @@ the JAX side is handed the same codec (the port's smoke decoder parameters,
 and the prompt codes of the port's smoke encoder), so that what is compared
 is the SpeechLM path from the directory: greedy speech ids must be equal.
 Also: the HTTP server answers, streams and reports, the streaming decoder
-agrees with JAX's chunk by chunk, and the flags the port does not take fail
-in argparse."""
+agrees with JAX's chunk by chunk, the prefill-ahead flags reach the engine,
+and the flag the port does not take fails in argparse."""
 
 import argparse
 import dataclasses
@@ -295,10 +295,7 @@ def test_streaming_synthesizer_emits_the_decoder_stream(served):
 
 
 @pytest.mark.parametrize("cli,flag", [
-    (serve_batch, ["--prefill_ahead"]),
-    (serve_batch, ["--park_rows", "4"]),
     (serve_batch, ["--no_staged_cache"]),
-    (serve_http, ["--park_groups_per_poll", "1"]),
 ])
 def test_flags_the_port_does_not_take_fail_in_argparse(cli, flag, tmp_path):
     argv = ["--model_dir", str(tmp_path), "--text", "x", "--output", "o.wav",
@@ -314,22 +311,74 @@ def test_flags_the_port_does_not_take_fail_in_argparse(cli, flag, tmp_path):
 
 
 @pytest.mark.parametrize("cli", [serve_batch, serve_http])
-@pytest.mark.parametrize("flag,want", [([], 16), (["--steps_per_dispatch", "0"], 16),
-                                       (["--steps_per_dispatch", "8"], 8)])
+@pytest.mark.parametrize("flag,want", [
+    ([], 16), (["--steps_per_dispatch", "0"], 16), (["--steps_per_dispatch", "8"], 8),
+    (["--prefill_ahead"], 32), (["--prefill_ahead", "--steps_per_dispatch", "0"], 32),
+    (["--prefill_ahead", "--steps_per_dispatch", "8"], 8)])
 def test_steps_per_dispatch_zero_means_auto(served, cli, flag, want):
     """``--steps_per_dispatch 0``, the reference CLIs' default, means auto:
-    16 steps per dispatch, as the reference without ``--prefill_ahead``; an
-    explicit K stays K."""
+    16 steps per dispatch, or 32 with ``--prefill_ahead``, as in the
+    reference; an explicit K stays K."""
     argv = ["--model_dir", served["model_dir"], "--no_warmup", *CPU, *flag]
     if cli is serve_batch:
         argv += ["--requests", "r.jsonl", "--out_dir", "wavs"]
     args = cli.parse_args(argv)
-    assert args.steps_per_dispatch == (int(flag[1]) if flag else 0)
+    k = flag.index("--steps_per_dispatch") + 1 if "--steps_per_dispatch" in flag else None
+    assert args.steps_per_dispatch == (int(flag[k]) if k else 0)
     params, cfg, _ = serving_inference.load_model(args)
     sv = ttok.speech_vocab(ttok.build_byte_tokenizer())
     engine = serve_batch.build_engine(args, params, cfg, sv, prefix_cache=False)
     assert isinstance(engine, te.InferenceEngine)
     assert engine.steps_per_dispatch == want
+    assert engine.prefill_ahead == ("--prefill_ahead" in flag)
+
+
+@pytest.mark.parametrize("cli", [serve_batch, serve_http])
+@pytest.mark.parametrize("engine_kind", ["contiguous", "paged"])
+@pytest.mark.parametrize("flag,want", [
+    (["--prefill_ahead"], (2, 512, 0)),
+    (["--prefill_ahead", "--park_rows", "3", "--park_len", "200",
+      "--park_groups_per_poll", "2"], (3, 192, 2)),
+    (["--park_rows", "3"], None),
+], ids=["defaults", "explicit", "off"])
+def test_park_flags_reach_the_engine(served, cli, engine_kind, flag, want):
+    """``--prefill_ahead`` and ``--park_*`` reach ``build_engine``'s engine
+    (park rows, park length floored to the 64-token bucket step, groups per
+    poll); without ``--prefill_ahead`` the engine parks nothing."""
+    argv = ["--model_dir", served["model_dir"], "--no_warmup", "--max_batch", "2",
+            "--max_len", "512", "--engine", engine_kind, *CPU, *flag]
+    if cli is serve_batch:
+        argv += ["--requests", "r.jsonl", "--out_dir", "wavs"]
+    args = cli.parse_args(argv)
+    params, cfg, _ = serving_inference.load_model(args)
+    sv = ttok.speech_vocab(ttok.build_byte_tokenizer())
+    engine = serve_batch.build_engine(args, params, cfg, sv, prefix_cache=True)
+    assert isinstance(engine, te.PagedInferenceEngine) == (engine_kind == "paged")
+    if want is None:
+        assert not engine.prefill_ahead and "park_rows" not in engine.stats()
+        return
+    assert (engine.park_rows, engine.park_len, engine.park_groups_per_poll) == want
+    assert engine.stats()["free_park_rows"] == want[0]
+
+
+def test_serve_batch_prefill_ahead_gives_the_same_ids(served, tmp_path):
+    """The JSONL of ``test_serve_batch_matches_the_jax_contiguous_engine``
+    through a one-slot pool with ``--prefill_ahead``: two requests park, and
+    the greedy ids equal the run without it."""
+    _jsonl(served, tmp_path / "reqs.jsonl")
+    runs = []
+    for extra in ([], ["--prefill_ahead", "--park_rows", "2"]):
+        runs.append(serve_batch.main([
+            "--model_dir", served["model_dir"], "--requests", str(tmp_path / "reqs.jsonl"),
+            "--out_dir", str(tmp_path / f"wavs{len(runs)}"), "--max_batch", "1",
+            "--max_len", "512", "--max_tokens", "12", "--steps_per_dispatch", "4", *CPU,
+            *extra]))
+    plain, parked = ({c.request_id: c.tokens.tolist() for c in r["completions"]}
+                     for r in runs)
+    assert parked == plain and sorted(runs[1]["outputs"]) == [0, 1, 2]
+    stats = runs[1]["engine"].stats()
+    assert stats["parked_total"] == 2 and stats["free_park_rows"] == 2
+    assert len(runs[1]["ttft_s"]) == 3
 
 
 def test_clis_default_to_the_card(served, tmp_path):

@@ -17,6 +17,9 @@
 - ``poll()`` and ``run()`` pipeline dispatches: dispatch N+1 is queued before
   dispatch N's blob is read. A slot freed in dispatch N is masked in N+1 on
   the device, and re-admitted one dispatch later.
+- ``prefill_ahead``: while the pool is full, queued requests prefill into a
+  separate park buffer and their first token (the preview) reaches the host
+  at once; when a slot frees, the parked K/V rows attach to it with a copy.
 
 All per-slot state lives on the device and is updated in place, in stream
 order, so the functional state chain of the JAX engine needs no copies
@@ -27,8 +30,6 @@ depend on which other requests share the pool, nor on K or pipelining.
 
 Left out of this port, with the constructor arguments that exist only for
 them (they are not accepted):
-- ``prefill_ahead``, ``park_rows``, ``park_len``, ``park_groups_per_poll``:
-  prefill ahead of slot availability, a later slice of the port;
 - ``mesh``: tensor-parallel serving, the parallelism slice;
 - ``delta_kv`` and the paged ``persistent_read_cache``: they keep XLA from
   copying a loop-carried cache; here the decode step writes its K/V rows in
@@ -82,6 +83,20 @@ class Completion:
 class _Slot:
     request: Request | None = None
     generated: list[int] = field(default_factory=list)
+    # attached from the park buffer: the first token was emitted at park
+    # time, and the next blob row of this slot re-derives it; the host checks
+    # and consumes that row without appending
+    skip_preview: bool = False
+
+
+@dataclass
+class _Parked:
+    """A request prefilled ahead of slot availability: its K/V rows live in
+    park row ``row`` and its first token is already emitted."""
+
+    row: int
+    request: Request
+    first_token: int
 
 
 def _bucket(n: int, step: int = 64) -> int:
@@ -89,9 +104,9 @@ def _bucket(n: int, step: int = 64) -> int:
 
 
 class _Blob:
-    """A dispatch's [2K+1, B] int32 result on its way to the host: on a
-    card, copied into pinned memory behind an event (no sync until
-    ``get``)."""
+    """A small int32 result on its way to the host (a dispatch's [2K+1, B]
+    blob, or the park previews): on a card, copied into pinned memory behind
+    an event (no sync until ``get``)."""
 
     def __init__(self, blob: torch.Tensor):
         if blob.device.type == "cpu":
@@ -124,6 +139,10 @@ class InferenceEngine:
         steps_per_dispatch: int = 1,
         prefill_group_sizes: tuple[int, ...] = (8, 4, 2, 1),
         admission_policy: str = "fifo",
+        prefill_ahead: bool = False,
+        park_rows: int | None = None,
+        park_len: int | None = None,
+        park_groups_per_poll: int = 0,
         device="cuda",
     ):
         """``vocab_window=(lo, size)`` constrains sampling to ids [lo,
@@ -135,7 +154,20 @@ class InferenceEngine:
         (shortest prompt + budget first; long requests can starve under
         sustained overload). ``max_top_k`` bounds every row's top-k.
         ``device``: the card unless the caller asks for ``"cpu"``, where the
-        kernels' plain versions run."""
+        kernels' plain versions run.
+
+        ``prefill_ahead``: while the pool is full, prefill queued requests
+        into a park buffer (a contiguous cache of ``park_rows`` rows, default
+        ``max_batch``, of ``park_len`` tokens, default ``min(512, max_len)``
+        floored to the prompt bucket step) and emit their first token at
+        once. It is sampled with exactly the inputs the decode's first step
+        will see (the key (seed, 0), the prompt counts, no generated
+        counts); the attach sets the slot's logits row to a one-hot over that
+        token, so the decode re-emits it whatever the noise and penalties,
+        and the host consumes the duplicate. Requests with ``min_tokens``,
+        prompts longer than ``park_len`` and prefix-cache hits take the
+        queued path. ``park_groups_per_poll`` caps the park groups a poll
+        runs (0: as many as the free park rows take)."""
         self.device = resolve_device(device)
         if llama.params_device(params) != self.device:
             raise ValueError(f"params live on {llama.params_device(params)}, "
@@ -190,9 +222,31 @@ class InferenceEngine:
         self._stage_counts: collections.Counter = collections.Counter()
         self._pending_dispatch = None  # (blob, slot snapshot) under poll()
         self._ids = itertools.count()
-        # group prefills (kernel A) and suffix admissions (no kernel) run
+        # group prefills and park groups (kernel A) and suffix admissions (no
+        # kernel) run
         self._prefill_groups = 0
+        self._park_groups = 0
         self._suffix_admissions = 0
+
+        self.prefill_ahead = prefill_ahead
+        self._parked_entries: collections.deque[_Parked] = collections.deque()
+        # park groups whose previews the host has not read: lists of (park
+        # row, request), all covered by one copy of the preview row
+        self._pending_parks: list[list[tuple[int, Request]]] = []
+        self._park_blob: _Blob | None = None
+        self._parked_total = 0  # requests prefilled ahead, lifetime
+        if prefill_ahead:
+            self.park_groups_per_poll = park_groups_per_poll
+            self.park_rows = park_rows or max_batch
+            step = self._bucket_step()
+            self.park_len = max(step, (min(park_len or min(512, max_len), max_len)
+                                       // step) * step)
+            self.park_cache = llama.init_kv_cache(cfg, self.park_rows, self.park_len,
+                                                  quantized=quantized_kv, device=dev)
+            self.park_counts = torch.zeros(self.park_rows, width, dtype=torch.int32,
+                                           device=dev)
+            self.park_preview = torch.zeros(self.park_rows, dtype=torch.int32, device=dev)
+            self._free_park_rows = list(range(self.park_rows))
 
     # --- public API ---------------------------------------------------------
 
@@ -216,21 +270,38 @@ class InferenceEngine:
         return rid
 
     def has_work(self) -> bool:
-        return (bool(self._queue) or any(s.request for s in self._slots)
+        return (bool(self._queue) or bool(self._parked_entries)
+                or bool(self._pending_parks) or any(s.request for s in self._slots)
                 or self._pending_dispatch is not None)
 
     def cancel(self, request_id: int) -> bool:
-        """Abort a request: drop it from the queue, or free its slot
-        mid-flight (partial output is discarded). False if the id is unknown
-        or already finished."""
+        """Abort a request: drop it from the queue or the park buffer, or
+        free its slot mid-flight (partial output is discarded). False if the
+        id is unknown or already finished."""
         for i, req in enumerate(self._queue):
             if req.request_id == request_id:
                 del self._queue[i]
                 return True
+        for i, entry in enumerate(self._parked_entries):
+            if entry.request.request_id == request_id:
+                del self._parked_entries[i]
+                self._free_park_rows.append(entry.row)
+                self.first_token_times.pop(request_id, None)
+                return True
+        for group in self._pending_parks:
+            for j, (row, req) in enumerate(group):
+                if req.request_id == request_id:
+                    # its park program is queued: the preview is read by row,
+                    # so dropping the member is enough, and the row's writes
+                    # become dead rows that the next park of the row rewrites
+                    del group[j]
+                    self._free_park_rows.append(row)
+                    return True
         for i, slot in enumerate(self._slots):
             if slot.request is not None and slot.request.request_id == request_id:
                 slot.request = None
                 slot.generated = []
+                slot.skip_preview = False
                 self.first_token_times.pop(request_id, None)
                 self.active[i].fill_(False)  # a scalar fill: no host sync
                 if self._pending_dispatch is not None:
@@ -247,6 +318,7 @@ class InferenceEngine:
         """Admit queued requests into free slots, run one dispatch (K
         lockstep steps) and read its blob at once; collect completions."""
         self._admit()
+        self._process_pending_park()
         if any(s.request for s in self._slots):
             self._process_decode_blob(*self._dispatch_decode())
         out, self._finished = self._finished, []
@@ -268,6 +340,10 @@ class InferenceEngine:
         if pending is not None:
             self._process_decode_blob(*pending)
             self._flush_deferred_releases()  # blocks held by cancel() are free now
+        # this poll's park previews were copied behind the park programs,
+        # which the stream ran before the dispatch just queued: reading them
+        # now waits for no decode work
+        self._process_pending_park()
         out, self._finished = self._finished, []
         return out
 
@@ -296,6 +372,10 @@ class InferenceEngine:
             # one stage, the full max_len: there is no staged cache here
             "dispatches_per_stage": dict(self._stage_counts),
         }
+        if self.prefill_ahead:
+            out.update(parked_requests=len(self._parked_entries),
+                       free_park_rows=len(self._free_park_rows),
+                       park_rows=self.park_rows, parked_total=self._parked_total)
         return out
 
     def generate_all(self, prompts, max_new_tokens: int, eos_id: int,
@@ -324,6 +404,17 @@ class InferenceEngine:
             tokens = torch.zeros(g, bucket, dtype=torch.int32, device=self.device)
             ones = torch.ones(g, dtype=torch.int32, device=self.device)
             llama.prefill(self.params, self.cfg, tokens, ones, small, self._head)
+        if self.prefill_ahead:
+            # one park group into the first park rows (a park writes every
+            # row that an attach of it reads) and one attach of row 0 into
+            # slot 0, deactivated at once: the next admission into the slot
+            # writes every state row again, and the decode below writes only
+            # the slot's dead row (the sink block when paged: no blocks)
+            dummies = [Request(-1, np.ones(1, np.int32), 2, -1)
+                       for _ in range(min(g, self.park_rows))]
+            self._park_program(list(enumerate(dummies)))
+            self._attach_program([(0, _Parked(0, dummies[0], self._lo), {"blocks": []})])
+            self.active.index_fill_(0, self._rows[:1], False)
         self._decode_multi(1)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -417,13 +508,19 @@ class InferenceEngine:
         self.bsp.repetition_penalty[slots] = meta_f[:, 2]
         self.bsp.frequency_penalty[slots] = meta_f[:, 3]
 
-    def _activate_host(self, slot_idx: int, req: Request) -> None:
+    def _enable_top_p(self, req: Request) -> None:
+        """Turn the nucleus filter's [B, V] sort on for a request that uses
+        it (it stays on)."""
         sp = req.sampling or self.sp
         if sp.top_p < 1.0 and not self.bsp.use_top_p:
             self.bsp = dataclasses.replace(self.bsp, use_top_p=True)
+
+    def _activate_host(self, slot_idx: int, req: Request) -> None:
+        self._enable_top_p(req)
         slot = self._slots[slot_idx]
         slot.request = req
         slot.generated = []
+        slot.skip_preview = False
 
     def _scatter_prefill(self, small, slots: torch.Tensor, bucket: int, items) -> None:
         """Write a group's prefill rows into its slots (contiguous layout)."""
@@ -432,28 +529,36 @@ class InferenceEngine:
 
         llama._map(leaf, self.cache, small)
 
+    def _prefill_rows(self, rows: list[int], reqs: list[Request], bucket: int):
+        """One batched prefill (kernel A) of ``reqs``' prompts, right-padded
+        to ``bucket``. Returns the admission metadata of ``rows`` (slots or
+        park rows), the last prompt position's logits, the [k, bucket]
+        cache and the prompt counts."""
+        padded = np.zeros((len(reqs), bucket), dtype=np.int32)
+        for i, req in enumerate(reqs):
+            padded[i, :len(req.prompt_tokens)] = req.prompt_tokens
+        meta_i, meta_f = self._meta(rows, reqs)
+        tokens = self._upload(padded)
+        ns = meta_i[:, 1].int()
+        small = llama.init_kv_cache(self.cfg, len(reqs), bucket, quantized=self.quantized_kv,
+                                    device=self.device)
+        logits, small = llama.prefill(self.params, self.cfg, tokens, ns, small,
+                                      logits_head=self._head)
+        mask = torch.arange(bucket, device=self.device)[None, :] < ns[:, None]
+        return meta_i, meta_f, logits, small, self._prompt_counts(tokens, mask)
+
     @torch.no_grad()
     def _prefill_group(self, items: list[tuple[int, Request, dict]]) -> None:
         """One batched prefill (kernel A) for ``items`` (all plain
         admissions), then the slots' state rows."""
         bucket = max(_bucket(len(r.prompt_tokens), self._bucket_step())
                      for _, r, _ in items)
-        k = len(items)
-        padded = np.zeros((k, bucket), dtype=np.int32)
-        for row, (_, req, _) in enumerate(items):
-            padded[row, :len(req.prompt_tokens)] = req.prompt_tokens
         for slot_idx, req, _ in items:
             self._activate_host(slot_idx, req)  # may set bsp.use_top_p
-        meta_i, meta_f = self._meta([s for s, _, _ in items], [r for _, r, _ in items])
-        tokens = self._upload(padded)
-        ns = meta_i[:, 1].int()
-        small = llama.init_kv_cache(self.cfg, k, bucket, quantized=self.quantized_kv,
-                                    device=self.device)
-        logits, small = llama.prefill(self.params, self.cfg, tokens, ns, small,
-                                      logits_head=self._head)
+        meta_i, meta_f, logits, small, counts = self._prefill_rows(
+            [s for s, _, _ in items], [r for _, r, _ in items], bucket)
         self._scatter_prefill(small, meta_i[:, 0], bucket, items)
-        mask = torch.arange(bucket, device=self.device)[None, :] < ns[:, None]
-        self._write_slot_state(meta_i, meta_f, logits, self._prompt_counts(tokens, mask))
+        self._write_slot_state(meta_i, meta_f, logits, counts)
         self._prefill_groups += 1
         for slot_idx, req, ctx in items:
             self._register_prefix(slot_idx, req, ctx)
@@ -463,6 +568,15 @@ class InferenceEngine:
             # stable: arrival order within a size class
             self._queue = collections.deque(sorted(
                 self._queue, key=lambda r: len(r.prompt_tokens) + r.max_new_tokens))
+        # parked requests left the queue earlier, so they stand ahead of it:
+        # they attach into free slots first, and while one waits (no slot, or
+        # no blocks when paged) the queue does not jump ahead of it
+        self._attach_parked()
+        if not self._parked_entries:
+            self._admit_queue()
+        self._park_ahead()  # the pool is still full: prefill ahead
+
+    def _admit_queue(self) -> None:
         while self._queue:
             free = [i for i, s in enumerate(self._slots) if s.request is None]
             if not free:
@@ -498,6 +612,159 @@ class InferenceEngine:
                 g = next(s for s in self.prefill_group_sizes if s <= len(group) - i)
                 self._prefill_group(group[i:i + g])
                 i += g
+
+    # --- prefill-ahead: park and attach --------------------------------------
+    # The stream runs the engine's device work in the order the host queues
+    # it, and every state row is written in place, so two rules hold by
+    # stream order alone:
+    # - an attach targets only a slot the host freed from a blob it has read,
+    #   as an admission does: the dispatch queued after that blob already
+    #   ran the slot masked, and the attach's writes follow it;
+    # - a park row returns to the free list once its attach is queued, and a
+    #   later park program that rewrites the row is queued after that
+    #   attach's copy, so the copy reads the rows it was given.
+
+    def _park_eligible(self, req: Request) -> bool:
+        return (len(req.prompt_tokens) <= self.park_len and req.min_tokens == 0
+                and len(req.prompt_tokens) + req.max_new_tokens <= self.max_len
+                and not self._wants_suffix(req))
+
+    def _park_ahead(self) -> None:
+        """While the pool is full, prefill the eligible head of the queue
+        into free park rows, a group at a time (at most
+        ``park_groups_per_poll`` groups when it is set), and queue one copy of
+        the preview row behind them for the host."""
+        if not self.prefill_ahead:
+            return
+        n = 0
+        while self._queue and self._free_park_rows:
+            if not self._park_eligible(self._queue[0]):
+                break
+            if self.park_groups_per_poll and n >= self.park_groups_per_poll:
+                break
+            group: list[tuple[int, Request]] = []
+            cap = min(len(self._free_park_rows), max(self.prefill_group_sizes))
+            while self._queue and len(group) < cap and self._park_eligible(self._queue[0]):
+                group.append((self._free_park_rows.pop(), self._queue.popleft()))
+            self._park_program(group)
+            self._pending_parks.append(group)
+            self._park_groups += 1
+            n += 1
+        if n:
+            # one read serves every pending group (the rows of a group
+            # cancelled while pending are not read)
+            self._park_blob = _Blob(self.park_preview)
+
+    @torch.no_grad()
+    def _park_program(self, group: list[tuple[int, Request]]) -> None:
+        """One batched prefill (kernel A) of ``group``'s prompts into their
+        park rows, their prompt counts, and the preview token of each row,
+        sampled as the decode's first step samples it."""
+        reqs = [r for _, r in group]
+        for req in reqs:
+            self._enable_top_p(req)  # before the preview: park and decode sample alike
+        bucket = min(self.park_len,
+                     max(_bucket(len(r.prompt_tokens), self._bucket_step()) for r in reqs))
+        meta_i, meta_f, logits, small, counts = self._prefill_rows(
+            [row for row, _ in group], reqs, bucket)
+        rows = meta_i[:, 0]
+
+        def leaf(big, little):
+            big[:, rows, :bucket] = little.to(big.dtype)
+
+        llama._map(leaf, self.park_cache, small)
+        self.park_counts[rows] = counts
+        bsp = sampling.BatchedSamplingParams(
+            temperature=meta_f[:, 0], top_k=meta_i[:, 5].int(), top_p=meta_f[:, 1],
+            repetition_penalty=meta_f[:, 2], frequency_penalty=meta_f[:, 3],
+            max_top_k=self.bsp.max_top_k, use_top_p=self.bsp.use_top_p)
+        # the decode's first step: key (seed, 0), no generated counts, and no
+        # EOS block (min_tokens is 0 by eligibility)
+        keys = torch.stack([meta_i[:, 6], torch.zeros_like(meta_i[:, 6])], dim=1)
+        toks_w = sampling.sample_token_batched(keys, logits, bsp, counts,
+                                               torch.zeros_like(counts))
+        self.park_preview[rows] = (toks_w + self._lo).int()
+
+    def _process_pending_park(self) -> None:
+        """Read the previews of every pending park group (one read): a
+        preview that is EOS, or a budget of 1, completes its request here
+        and frees its park row; the rest become parked entries."""
+        if not self._pending_parks:
+            return
+        pending, self._pending_parks = self._pending_parks, []
+        preview, self._park_blob = self._park_blob.get(), None
+        now = time.perf_counter()
+        for group in pending:
+            self._parked_total += len(group)
+            for row, req in group:
+                tok = int(preview[row])
+                self._total_tokens += 1
+                if tok == req.eos_id or req.max_new_tokens <= 1:
+                    self._total_completions += 1
+                    self._finished.append(Completion(
+                        req.request_id, np.asarray([tok], dtype=np.int32),
+                        "eos" if tok == req.eos_id else "length", now))
+                    self._free_park_rows.append(row)
+                else:
+                    self.first_token_times[req.request_id] = now
+                    self._parked_entries.append(_Parked(row, req, tok))
+
+    def _can_attach(self, req: Request) -> bool:
+        return True  # contiguous: a free slot is the only resource
+
+    def _prepare_attach(self, slot_idx: int, req: Request) -> dict:
+        return {}
+
+    def _register_attach(self, slot_idx: int, req: Request, ctx: dict) -> None:
+        pass
+
+    def _attach_parked(self) -> None:
+        while self._parked_entries:
+            free = [i for i, s in enumerate(self._slots) if s.request is None]
+            group: list[tuple[int, _Parked, dict]] = []
+            while (self._parked_entries and len(group) < len(free)
+                   and len(group) < max(self.prefill_group_sizes)
+                   and self._can_attach(self._parked_entries[0].request)):
+                entry = self._parked_entries.popleft()
+                slot_idx = free[len(group)]
+                group.append((slot_idx, entry, self._prepare_attach(slot_idx, entry.request)))
+            if not group:
+                return
+            for slot_idx, entry, _ in group:
+                self._activate_host(slot_idx, entry.request)  # may set bsp.use_top_p
+                slot = self._slots[slot_idx]
+                slot.generated = [entry.first_token]
+                slot.skip_preview = True
+            self._attach_program(group)
+            for slot_idx, entry, ctx in group:
+                self._free_park_rows.append(entry.row)
+                self._register_attach(slot_idx, entry.request, ctx)
+
+    def _attach_scatter(self, rows: torch.Tensor, slots: torch.Tensor, group) -> None:
+        """Copy park rows' K/V into the slots' rows (contiguous layout)."""
+        def leaf(big, parked):
+            big[:, slots, :self.park_len] = parked[:, rows].to(big.dtype)
+
+        llama._map(leaf, self.cache, self.park_cache)
+
+    @torch.no_grad()
+    def _attach_program(self, group: list[tuple[int, _Parked, dict]]) -> None:
+        """Park rows into slots: a copy of their K/V rows (no recompute) and
+        every per-slot state row, as an admission writes them, with the
+        logits row a one-hot over the preview token (0 there, -inf
+        elsewhere). Penalties, temperature, top-k/top-p and the noise all
+        keep a single finite entry finite and the rest -inf, so the decode's
+        first step re-emits the preview and forwards it."""
+        entries = [e for _, e, _ in group]
+        meta_i, meta_f = self._meta([s for s, _, _ in group], [e.request for e in entries])
+        extra = self._upload(np.asarray([[e.row, e.first_token - self._lo] for e in entries],
+                                        dtype=np.int64))
+        rows = extra[:, 0]
+        self._attach_scatter(rows, meta_i[:, 0], group)
+        onehot = torch.full((len(group), self.last_logits.shape[1]), float("-inf"),
+                            device=self.device)
+        onehot.scatter_(1, extra[:, 1:], 0.0)
+        self._write_slot_state(meta_i, meta_f, onehot, self.park_counts[rows])
 
     def _guard_lengths(self, lengths, active, table):
         """Write positions of the lockstep step. An inactive slot (idle,
@@ -592,7 +859,20 @@ class InferenceEngine:
             if slot.request is None or slot.request.request_id != snapshot[i]:
                 continue  # re-admitted (or cancelled) since this dispatch
             for j in range(k):
-                if emitted[j, i] and self._finish_token(i, int(toks[j, i])):
+                if not emitted[j, i]:
+                    continue
+                if slot.skip_preview:
+                    # the decode's first step of an attached slot re-emits the
+                    # park preview (its logits row was a one-hot), which
+                    # already ended no request: check it and consume it
+                    slot.skip_preview = False
+                    if int(toks[j, i]) != slot.generated[0]:
+                        raise RuntimeError(
+                            f"park preview {slot.generated[0]} != decode re-derivation "
+                            f"{int(toks[j, i])} for request {slot.request.request_id} "
+                            f"(slot {i})")
+                    continue
+                if self._finish_token(i, int(toks[j, i])):
                     freed.append(i)
                     break
         # the device finished slots on its own; both sides must agree, or
@@ -642,6 +922,10 @@ class PagedInferenceEngine(InferenceEngine):
         max_top_k: int = 64,
         steps_per_dispatch: int = 1,
         admission_policy: str = "fifo",
+        prefill_ahead: bool = False,
+        park_rows: int | None = None,
+        park_len: int | None = None,
+        park_groups_per_poll: int = 0,
         device="cuda",
     ):
         if max_len % block_size:
@@ -670,7 +954,8 @@ class PagedInferenceEngine(InferenceEngine):
             params, cfg, max_batch=max_batch, max_len=max_len, sp=sp, pad_id=pad_id,
             quantized_kv=quantized_kv, vocab_window=vocab_window, max_top_k=max_top_k,
             steps_per_dispatch=steps_per_dispatch, admission_policy=admission_policy,
-            device=device,
+            prefill_ahead=prefill_ahead, park_rows=park_rows, park_len=park_len,
+            park_groups_per_poll=park_groups_per_poll, device=device,
         )
 
     def stats(self) -> dict:
@@ -847,6 +1132,48 @@ class PagedInferenceEngine(InferenceEngine):
             if hashes[i] not in self._block_of:
                 self._block_of[hashes[i]] = blocks[i]
                 self._hash_of[blocks[i]] = hashes[i]
+
+    # --- prefill-ahead, paged ------------------------------------------------
+    # A prefix-cache hit never parks (_park_eligible): a park prefills the
+    # whole prompt, and an attach writes only fresh blocks, never shared
+    # cached ones that other requests read.
+
+    def _can_attach(self, req: Request) -> bool:
+        return self._blocks_needed(req) <= len(self._free_blocks) + len(self._evictable)
+
+    def _prepare_attach(self, slot_idx: int, req: Request) -> dict:
+        """Fresh blocks for an attach, and the slot's table row."""
+        hashes = self._block_hashes(req.prompt_tokens) if self.enable_prefix_cache else []
+        blocks = [self._alloc_block() for _ in range(self._blocks_needed(req))]
+        for blk in blocks:
+            self._refs[blk] += 1
+        self._slot_blocks[slot_idx] = blocks
+        self._table[slot_idx] = 0
+        self._table[slot_idx, :len(blocks)] = blocks
+        self._table_dirty = True
+        return {"hashes": hashes, "m": 0, "blocks": blocks}
+
+    def _attach_scatter(self, rows: torch.Tensor, slots: torch.Tensor, group) -> None:
+        """Copy park rows' K/V through per-row block tables [g, park_len //
+        bs]: the columns past a short allocation go to the sink block 0."""
+        nb = self.park_len // self.block_size
+        tables = np.zeros((len(group), nb), dtype=np.int64)
+        for row, (_, _, ctx) in enumerate(group):
+            blocks = ctx["blocks"][:nb]
+            tables[row, :len(blocks)] = blocks
+        tables = self._upload(tables)
+
+        def leaf(big, parked):
+            lit = parked[:, rows]  # [L, g, park_len, ...]
+            big[:, tables] = lit.reshape(lit.shape[0], lit.shape[1], nb, self.block_size,
+                                         *lit.shape[3:]).to(big.dtype)
+
+        llama._map(leaf, self.cache, self.park_cache)
+
+    def _register_attach(self, slot_idx: int, req: Request, ctx: dict) -> None:
+        # the attached blocks hold the prompt's exact K/V: they enter the
+        # prefix cache as a group prefill's do
+        self._register_prefix(slot_idx, req, ctx)
 
     @torch.no_grad()
     def _admit_suffix(self, slot_idx: int, req: Request) -> None:

@@ -159,6 +159,22 @@ def sample_token(
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def sampling_distribution(
+    logits: torch.Tensor,
+    params: SamplingParams,
+    token_counts: torch.Tensor | None = None,
+    gen_counts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The exact [B, V] fp32 distribution ``sample_token`` draws from
+    (one-hot argmax when temperature <= 0): the p and q of speculative
+    decoding's accept/reject arithmetic."""
+    al = adjusted_logits(logits, params, token_counts, gen_counts)
+    if params.temperature <= 0.0:
+        return torch.nn.functional.one_hot(torch.argmax(al, dim=-1),
+                                           al.shape[-1]).float()
+    return torch.softmax(al, dim=-1)
+
+
 # --- per-row (batched) sampling params --------------------------------------
 # The serving engine keeps one row of sampling parameters per slot
 # (per-request overrides, vLLM style).

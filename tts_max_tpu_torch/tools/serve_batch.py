@@ -24,15 +24,17 @@ Runs on the card unless ``--device cpu`` is given:
       [--max_batch 8] [--max_len 2048] [--steps_per_dispatch 0] [--block_size 64] \\
       [--quantized_kv] [--no_prefix_cache] [--no_constrain] [--no_warmup] \\
       [--admission_policy fifo|shortest] [--max_tokens 1792] [--seed 42] \\
+      [--prefill_ahead] [--park_rows 0] [--park_len 0] [--park_groups_per_poll 0] \\
       [--codec_decoder dec.pt --codec_encoder enc.pt] \\
       [--quantize [int8|int4|int4-g64|int4-g128]] [--dtype bfloat16] [--device cuda]
 
 ``--quantize`` and pre-quantized dirs as in ``serving_inference``.
+``--prefill_ahead`` prefills queued requests into a park buffer while the
+pool is full and emits their first token at once (the engine's
+``prefill_ahead``); with it ``--steps_per_dispatch 0`` means 32, else 16.
 
-Not taken (they fail in argparse): ``--prefill_ahead``, ``--park_rows``,
-``--park_len`` and ``--park_groups_per_poll`` (wait for the engine's
-prefill-ahead), and ``--no_staged_cache`` (the port's decode kernels follow
-each slot's length, so it has no staged cache to turn off).
+Not taken (it fails in argparse): ``--no_staged_cache`` (the port's decode
+kernels follow each slot's length, so it has no staged cache to turn off).
 """
 
 from __future__ import annotations
@@ -56,9 +58,10 @@ from tts_max_tpu_torch.utils.logging import get_logger, setup_logging
 
 log = get_logger("serve_batch")
 
-# What --steps_per_dispatch 0 means: the reference's auto value without
-# --prefill_ahead (which the port does not take)
+# What --steps_per_dispatch 0 means: the reference's auto values, without
+# and with --prefill_ahead
 AUTO_STEPS_PER_DISPATCH = 16
+AUTO_STEPS_PER_DISPATCH_PARKED = 32
 
 
 def add_engine_args(parser: argparse.ArgumentParser) -> None:
@@ -75,9 +78,20 @@ def add_engine_args(parser: argparse.ArgumentParser) -> None:
                         help="disable the speech-window sampling constraint")
     parser.add_argument("--steps_per_dispatch", type=int, default=0,
                         help="lockstep decode steps per dispatch (one host sync each); "
-                             f"0 = auto ({AUTO_STEPS_PER_DISPATCH}, as the reference "
-                             "without --prefill_ahead)")
+                             f"0 = auto ({AUTO_STEPS_PER_DISPATCH}; "
+                             f"{AUTO_STEPS_PER_DISPATCH_PARKED} with --prefill_ahead)")
     parser.add_argument("--admission_policy", choices=["fifo", "shortest"], default="fifo")
+    parser.add_argument("--prefill_ahead", action="store_true",
+                        help="while the pool is full, prefill queued requests ahead of "
+                             "slot availability (park buffer) and emit their first token "
+                             "at once: cuts TTFT; costs the park buffer's memory")
+    parser.add_argument("--park_rows", type=int, default=0,
+                        help="prefill-ahead park rows (0 = max_batch); size to the "
+                             "expected queue depth for the lowest TTFT")
+    parser.add_argument("--park_len", type=int, default=0,
+                        help="park buffer token capacity (0 = min(512, max_len))")
+    parser.add_argument("--park_groups_per_poll", type=int, default=0,
+                        help="throttle parking (0 = park the whole eligible queue at once)")
     parser.add_argument("--no_warmup", action="store_true",
                         help="skip the startup warmup (kernel build, one prefill per "
                              "bucket, one decode dispatch)")
@@ -93,8 +107,12 @@ def build_engine(args, params, cfg, sv, prefix_cache: bool):
         window = None
     kw = dict(max_batch=args.max_batch, max_len=args.max_len,
               quantized_kv=args.quantized_kv, vocab_window=window,
-              steps_per_dispatch=args.steps_per_dispatch or AUTO_STEPS_PER_DISPATCH,
-              admission_policy=args.admission_policy, device=args.device)
+              steps_per_dispatch=args.steps_per_dispatch or (
+                  AUTO_STEPS_PER_DISPATCH_PARKED if args.prefill_ahead
+                  else AUTO_STEPS_PER_DISPATCH),
+              admission_policy=args.admission_policy, prefill_ahead=args.prefill_ahead,
+              park_rows=args.park_rows or None, park_len=args.park_len or None,
+              park_groups_per_poll=args.park_groups_per_poll, device=args.device)
     if args.engine == "paged":
         engine = PagedInferenceEngine(params, cfg, block_size=args.block_size,
                                       enable_prefix_cache=prefix_cache, **kw)

@@ -25,11 +25,10 @@ Runs on the card unless ``--device cpu`` is given:
       --no_prefix_cache] [--codec_decoder dec.pt --codec_encoder enc.pt] \\
       [--quantize [int8|int4|int4-g64|int4-g128]] [--dtype bfloat16] [--device cuda]
 
-``--quantize`` and pre-quantized dirs as in ``serving_inference``.
-
-Not taken (they fail in argparse): ``--prefill_ahead``, ``--park_rows``,
-``--park_len``, ``--park_groups_per_poll`` and ``--no_staged_cache``, as in
-``serve_batch``.
+``--quantize`` and pre-quantized dirs as in ``serving_inference``; the
+engine flags, ``--prefill_ahead`` and ``--park_*`` among them, as in
+``serve_batch``. Not taken (it fails in argparse): ``--no_staged_cache``, as
+in ``serve_batch``.
 """
 
 from __future__ import annotations
