@@ -8,7 +8,10 @@ kernels from ``tts_max_tpu_torch/csrc`` with nvcc (one process per source,
 in parallel) and holds each against its plain PyTorch version on the card,
 printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``):
 kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
-1 and 8, kv_len < S, n_rep 1 and 8), kernel B (contiguous decode), kernel C (ragged decode,
+1 and 8, kv_len < S, n_rep 1 and 8), kernel A' (attention's backward, for
+training: SFT's layer at batch 4 x 2048, fp32, D = 128, a tail, kv_len < S,
+n_rep 1, beside SDPA's backward; and A with its log-sum-exp write beside A
+without it), kernel B (contiguous decode), kernel C (ragged decode,
 the contiguous engine's), the paged decode kernel behind its three entry
 points (D, E, F) and D's stacked form (bf16 and int8 pools, block sizes
 16, 48 and 64), and kernel G (the codec encoder's
@@ -23,7 +26,13 @@ kernel it replaced, every case launched twice and held bitwise equal, the
 library's SASS required to hold HMMA (tensor-core) instructions. It checks the port's GPU
 path against its CPU path on a small model, through ``generate`` (also
 quantized: int8 and int4-g64, greedy ids) and through the paged engine
-under each paged entry point, and on a small codec encoder. Then it drives the main paths at
+under each paged entry point, on a small codec encoder, and through one fp32
+train step (kernels A and A' against the plain versions: loss, every grad,
+the updated params). Then it trains Llama-3.2-1B at full width through the
+SFT entry point (``tts_max_tpu_torch.training.main`` on
+``example/configs/sft.json``, 8 steps on a seeded dataset the port's
+``codes_io`` writes, a checkpoint, the final model, a one-step resume), and
+drives the main paths at
 the full width of Llama-3.2-1B, the full Vocos decoder and the full codec
 encoder with wav2vec-BERT 2.0, random weights from seeds: text and a 5 s or
 22 s prompt wav to waveform through ``LocalTtsModel.synthesize_speech`` (the
@@ -352,6 +361,93 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
         if label == "main":
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                         bound_by=by)
+    return dict(max_abs_err=worst, **main)
+
+
+# --- kernel A' (attention's backward) -------------------------------------------
+
+
+def attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None) -> tuple[float, str]:
+    """Least time for the backward: the five causal products (S, dP, dV, dK,
+    dQ), 2 * Hq * D FLOPs each per (query, key) pair with key <= query <
+    kv_len, over the dense peak for the dtype, against q, k, v, O, dO and
+    the log-sum-exp read once and dq, dk, dv written once."""
+    n = s if kv_len is None else kv_len
+    flops = 5 * 2.0 * b * hq * d * (n * (n + 1) // 2)
+    es = torch.finfo(dtype).bits // 8
+    nbytes = (4 * b * s * hq * d + 4 * b * s * hkv * d) * es + 4 * b * hq * s
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# SFT's layer (Llama-3.2-1B at batch 4 x 2048) first, then fp32, Llama-3.1-8B's
+# head_dim, a tail, kv_len < S and n_rep 1
+BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len)
+    ("main", 4, 2048, 32, 8, 64, torch.bfloat16, None),
+    ("fp32 S=1024", 1, 1024, 32, 8, 64, torch.float32, None),
+    ("D=128 S=1024", 1, 1024, 32, 8, 128, torch.bfloat16, None),
+    ("S=1000", 4, 1000, 32, 8, 64, torch.bfloat16, None),
+    ("kv_len<S", 1, 1024, 32, 8, 64, torch.bfloat16, 793),
+    ("n_rep 1", 1, 1024, 32, 32, 64, torch.bfloat16, None),
+]
+
+
+def check_kernel_a_bwd(timer: Timer) -> dict:
+    """Kernel A' against its plain version (``causal_attention_bwd``: torch
+    autograd through the plain attention under the kv_len rule) at every
+    case of BWD_CASES, within ``GRAD_TOL``, beside SDPA's backward; and
+    kernel A with its log-sum-exp write against A without it."""
+    from tts_max_tpu_torch.ops.attention import GRAD_TOL, causal_attention_bwd, grad_tol_ratio
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    log("kernel A': flash_attention_bwd vs ops.attention.causal_attention_bwd (plain: "
+        "autograd through fp32 math, TF32 off); library = the backward of "
+        "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) (a boolean "
+        "mask where kv_len < S) on the same inputs; tolerance GRAD_TOL "
+        f"{ {str(k): v for k, v in GRAD_TOL.items()} } as |g - ref| <= rtol|ref| + atol max|ref|")
+    worst, main = 0.0, None
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for (label, b, s, hq, hkv, d, dtype, kv_len) in BWD_CASES:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+                   for h in (hq, hkv, hkv))
+        g = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+        out, lse = flash_attention_fwd(q, k, v, True, kv_len, with_lse=True)
+        grads = flash_attention_bwd(q, k, v, out, lse, g, True, kv_len)
+        refs = causal_attention_bwd(q, k, v, g, kv_len=kv_len)
+        ratios = [grad_tol_ratio(x, r) for x, r in zip(grads, refs)]
+        errs = [max_err(x, r) for x, r in zip(grads, refs)]
+        if not max(ratios) <= 1.0:
+            raise AssertionError(f"kernel A' {label}: dq/dk/dv at {ratios} of GRAD_TOL "
+                                 f"(max abs err {errs})")
+        worst = max(worst, *errs)
+        ms = timer.ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, True, kv_len))
+        plain_ms = timer.ms(lambda: causal_attention_bwd(q, k, v, g, kv_len=kv_len), iters=5)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        if kv_len is None:
+            o_lib = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[None, :] < kv_len) & (pos[None, :] <= pos[:, None])
+            o_lib = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        gt = g.transpose(1, 2)
+        lib_ms = timer.ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), gt,
+                                                      retain_graph=True))
+        del o_lib
+        bound, by = attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len)
+        log(f"  {label:13s} B={b} S={s:5d} Hq={hq} Hkv={hkv} D={d:3d} {str(dtype):14s} "
+            f"kv_len={kv_len or s} dq/dk/dv max_abs_err={errs[0]:.3e}/{errs[1]:.3e}/"
+            f"{errs[2]:.3e} ({max(ratios):.2f}x GRAD_TOL)  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
+        if label == "main":
+            with_lse = timer.ms(lambda: flash_attention_fwd(q, k, v, True, None, with_lse=True))
+            without = timer.ms(lambda: flash_attention_fwd(q, k, v, True, None))
+            log(f"  kernel A at the main shape: {with_lse:.4f} ms writing the log-sum-exp, "
+                f"{without:.4f} ms without")
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                        bound_by=by)
+        del q, k, v, g, out, lse, grads, refs
     return dict(max_abs_err=worst, **main)
 
 
@@ -1006,6 +1102,217 @@ def check_small_model(tok, sv) -> None:
         log(f"small model {mode} (quantized on the CPU, moved to both): greedy ids identical "
             f"over {res.steps} steps; quant_matmul launches {quant_matmul.launches} "
             f"(expected {want}: {7 * cfg.n_layers + 1} a step, prompt of {n} rows)")
+
+
+def check_small_train() -> None:
+    """One fp32 train step of a narrow 2-layer model on the CPU (plain
+    versions) and on the card (kernels A and A'), from the same weights and
+    batch: loss, every leaf's grad and the updated params must agree, and
+    every leaf's grad on the card must be finite and non-zero (wq, wk, wv
+    and attn_norm reach the loss only through attention's backward)."""
+    import dataclasses as dc
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from tts_max_tpu_torch.training import optim, train_step as ts
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, rope_theta=10000.0,
+                            use_llama3_rope_scaling=False, max_seq_len=256,
+                            dtype=torch.float32)
+    cpu = llama.init_params(cfg, seed=5, device="cpu")
+    gpu = optim.tree_map(lambda t: t.cuda(), cpu)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, cfg.vocab_size, (1, 2, 200)).astype(np.int32)
+    labels = ids.copy()
+    labels[..., :20] = -100
+    batch = {"input_ids": ids, "labels": labels}
+    micro = {k: v[0] for k, v in batch.items()}
+    flash_attention_bwd.launches = 0
+    out = {}
+    for name, params in (("cpu", cpu), ("gpu", gpu)):
+        loss, _, grads = ts._loss_and_grads(params, cfg, ts.to_device_batch(
+            micro, llama.params_device(params)), 0)
+        tx = optim.create_optimizer(1e-3)
+        new, _, m = ts.train_step(params, tx.init(params), batch, cfg=cfg, tx=tx)
+        out[name] = (float(loss), grads, new, m)
+    if flash_attention_bwd.launches != 2 * cfg.n_layers:
+        raise AssertionError(f"small train: kernel A' launched {flash_attention_bwd.launches} "
+                             f"times, expected {2 * cfg.n_layers}")
+    lc, gc, pc, _ = out["cpu"]
+    lg, gg, pg, _ = out["gpu"]
+    if not abs(lg - lc) <= 1e-5 * abs(lc):
+        raise AssertionError(f"small train: loss {lg} on the card, {lc} on the CPU")
+    worst_g = 0.0
+    for path, a in optim.tree_items(gg):
+        ref = dict(optim.tree_items(gc))[path]
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0):
+            raise AssertionError(f"small train: grad of {path} on the card is "
+                                 f"{'non-finite' if not torch.isfinite(a).all() else 'zero'}")
+        # fp32 on both: sum order and A's GRAD_TOL, relative to the leaf's scale
+        rel = max_err(a.cpu(), ref) / float(ref.abs().max())
+        worst_g = max(worst_g, rel)
+        if not rel <= 1e-4:
+            raise AssertionError(f"small train: grad of {path}: max err {rel:.2e} of max|g|")
+    # Adam's first update is lr * g / (|g| + eps) per element: an element whose
+    # tiny grad differs in sign between the devices moves by up to 2 lr. So the
+    # card's step is held against the CPU's optimizer applied to the card's own
+    # grads (clipped as the step clips them): fp32 elementwise rounding only.
+    g_card = optim.tree_map(lambda t: t.cpu(), gg)
+    gnorm = optim.global_norm(g_card)
+    if float(gnorm) > 1.0:
+        g_card = optim.tree_map(lambda t: t * (1.0 / gnorm), g_card)
+    tx = optim.create_optimizer(1e-3)
+    upd, _ = tx.update(g_card, tx.init(cpu), cpu)
+    want = optim.apply_updates(cpu, upd)
+    worst_p = max(max_err(a.cpu(), dict(optim.tree_items(want))[path])
+                  for path, a in optim.tree_items(pg))
+    if not worst_p <= 1e-6:
+        raise AssertionError(f"small train: the card's AdamW step differs from the CPU's "
+                             f"on the same grads by {worst_p}")
+    named = [p for p, _ in optim.tree_items(gg) if re.search(r"wq|wk|wv|attn_norm", p)]
+    log(f"small train fp32, GPU kernels A/A' vs CPU plain: loss {lg:.6f} vs {lc:.6f}; "
+        f"grads of {len(list(optim.tree_items(gg)))} leaves finite and non-zero on the card "
+        f"(incl. {', '.join(named)}), max err {worst_g:.2e} of each leaf's max (tol 1e-4); "
+        f"params after one AdamW step (lr 1e-3) within {worst_p:.2e} of the CPU optimizer's "
+        f"step on the card's grads (tol 1e-6)")
+
+
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_train")
+TRAIN_STEPS = 8
+FIXED_VOCAB = 193856  # core/constants.FIXED_VOCAB_SIZE
+SFT_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "example", "configs",
+                          "sft.json")
+
+
+def _write_train_dataset(path: str) -> None:
+    """16 train and 4 val samples of 1400-1500 seeded codes (28-30 s at 50
+    Hz: the data filter drops samples over 30 s) with short transcripts,
+    written by the port's codes_io: prompts of ~1500-1650 tokens, padded to
+    the 2048 bucket, so batches repeat across epochs at batch 4."""
+    from tts_max_tpu_torch.data import codes_io
+    from tts_max_tpu_torch.data.samples import Sample
+
+    rng = np.random.default_rng(11)
+    for split, n in (("train", 16), ("val", 4)):
+        lens = rng.integers(1400, 1501, n)
+        codes = rng.integers(0, 65536, int(lens.sum())).astype(np.int32)
+        index = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        samples = [Sample.from_json({"wav_path": f"{split}{i}.wav",
+                                     "transcript": ENGINE_TEXTS[i % len(ENGINE_TEXTS)],
+                                     "language": "en", "duration": float(lens[i]) / 50,
+                                     "sample_rate": 16000}, "synthetic") for i in range(n)]
+        codes_io.write_shard(path, split, codes, index, samples)
+
+
+def run_training(counters) -> dict:
+    """SFT at the full width of Llama-3.2-1B through the entry point users
+    run, ``python -m tts_max_tpu_torch.training.main --config_path ...``
+    (called in-process), on ``example/configs/sft.json`` with only the
+    dataset paths, the output dir, the checkpoints kept and the step count
+    changed; then a one-step resume from its checkpoint. Returns the launch
+    counts of both runs."""
+    import shutil
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.training import main as train_main
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    data = os.path.join(TRAIN_DIR, "synthetic")
+    _write_train_dataset(data)
+    with open(SFT_CONFIG) as f:
+        cfg = json.load(f)
+    changes = {"train_weighted_datasets": {data: 1.0}, "val_weighted_datasets": {data: 1.0},
+               "output_dir": os.path.join(TRAIN_DIR, "out")}
+    cfg.update(changes)
+    cfg["checkpointing"]["keep_only_last_n_checkpoints"] = 1
+    # the published width: Llama-3.2-1B with the fixed 193856-token speech
+    # vocab (FIXED_VOCAB_SIZE, what an HF dir of the model carries); the byte
+    # tokenizer's 65806 ids index its first rows
+    cfg["modeling"]["parameters"]["vocab_size"] = FIXED_VOCAB
+    path = os.path.join(TRAIN_DIR, "sft.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    arch = llama.config_for_architecture(cfg["modeling"]["parameters"]["architecture"],
+                                         vocab_size=FIXED_VOCAB)
+    L = arch.n_layers
+    log(f"SFT through tts_max_tpu_torch.training.main on {os.path.relpath(SFT_CONFIG)} "
+        f"({cfg['modeling']['parameters']['architecture']}: {L} layers, dim {arch.dim}, "
+        f"vocab {arch.vocab_size}, batch {cfg['training']['batch_size']}, max_seq_len "
+        f"{cfg['modeling']['parameters']['max_seq_len']}, {cfg['training']['precision']}, "
+        f"remat {cfg['training']['remat_policy']}, Adam mu {cfg['training']['adam_mu_dtype']}, "
+        f"lr {cfg['training']['learning_rate']}, warmup {cfg['training']['warmup_ratio']}); "
+        f"changed: datasets -> {os.path.relpath(data)}, output_dir -> "
+        f"{os.path.relpath(changes['output_dir'])}, keep_only_last_n_checkpoints 10 -> 1, "
+        f"vocab_size (unset: the byte tokenizer's 65806) -> {FIXED_VOCAB}, "
+        f"--total_steps {TRAIN_STEPS}; free disk "
+        f"{shutil.disk_usage(TRAIN_DIR).free / 2**30:.1f} GiB")
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _counts(counters)
+    losses = [m.loss for _, m, _, _ in res.steps]
+    if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"SFT losses {losses}")
+    eval_batches = 4 // cfg["training"]["batch_size"]  # at step 0 only (eval_steps 300)
+    want = {c.__name__: 0 for c in counters}
+    # remat: each layer's forward runs twice a step (with the log-sum-exp), once
+    # an eval batch (without); its backward once a step
+    want.update(flash_attention=L * (2 * TRAIN_STEPS + eval_batches),
+                flash_attention_bwd=L * TRAIN_STEPS)
+    _check_counts("SFT", got, want)
+    out = changes["output_dir"]
+    ckpt = os.path.join(out, "checkpoints", str(TRAIN_STEPS), "state.pt")
+    final = os.path.join(out, "final_model", "model.safetensors")
+    if not (os.path.isfile(ckpt) and os.path.isfile(final)
+            and os.path.isfile(os.path.join(out, "training_config.json"))):
+        raise AssertionError(f"SFT outputs missing under {out}: {os.listdir(out)}")
+    secs = [s for _, _, s, _ in res.steps]
+    toks = [n for _, _, _, n in res.steps]
+    ms_step = 1e3 * float(np.median(secs[2:]))
+    tok_s = float(np.median([n / s for n, s in zip(toks[2:], secs[2:])]))
+    log(f"  SFT {TRAIN_STEPS} steps in {wall:.1f} s: losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; grad norms " + " ".join(f"{m.grad_norm:.3f}" for _, m, _, _ in res.steps))
+    log(f"  SFT train tokens/s (tools/bench_train.py's metric, padded batch tokens / step "
+        f"time, median of steps 3-{TRAIN_STEPS}): {tok_s:.0f}; ms/step {ms_step:.1f} "
+        f"(step seconds {' '.join(f'{s:.3f}' for s in secs)}; padded tokens a step "
+        f"{toks}); peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB saved in "
+        f"{res.checkpoint_seconds[-1]:.2f} s; final_model "
+        f"{os.path.getsize(final) / 2**30:.2f} GiB in {res.final_model_seconds:.2f} s; "
+        f"launches {got}; {gpu_line()}")
+    del res
+
+    cfg["checkpointing"]["only_load_model_weights"] = False
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    for c in counters:
+        c.launches = 0
+    res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS + 1)])
+    got2 = _counts(counters)
+    if not ([s for s, _, _, _ in res.steps] == [TRAIN_STEPS + 1]
+            and res.statistics.step == TRAIN_STEPS + 1 and np.isfinite(res.steps[0][1].loss)
+            and os.path.isfile(os.path.join(out, "checkpoints", str(TRAIN_STEPS + 1),
+                                            "state.pt"))
+            and not os.path.exists(os.path.join(out, "checkpoints", str(TRAIN_STEPS)))):
+        raise AssertionError(f"SFT resume: steps {[s for s, _, _, _ in res.steps]}, "
+                             f"statistics at {res.statistics.step}")
+    want2 = {c.__name__: 0 for c in counters}
+    want2.update(flash_attention=2 * L, flash_attention_bwd=L)
+    _check_counts("SFT resume", got2, want2)
+    log(f"  SFT resume (only_load_model_weights true -> false): step {TRAIN_STEPS + 1} from "
+        f"the step-{TRAIN_STEPS} checkpoint, loss {res.steps[0][1].loss:.4f}, checkpoint "
+        f"{res.checkpoint_seconds[-1]:.2f} s; launches {got2}")
+    shutil.rmtree(TRAIN_DIR)
+    return {k: got[k] + got2[k] for k in got}
 
 
 def check_small_engine(tok, sv) -> None:
@@ -1986,7 +2293,7 @@ def main() -> int:
     from tts_max_tpu_torch.device import full_fp32
     from tts_max_tpu_torch.ops import cuda_build
     from tts_max_tpu_torch.ops.act1d import activation1d_kernel
-    from tts_max_tpu_torch.ops.flash_attention import flash_attention
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from tts_max_tpu_torch.ops.flash_decode import flash_decode_attention
     from tts_max_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
@@ -1997,6 +2304,11 @@ def main() -> int:
     from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention
 
     full_fp32()
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {name}")
+
     card = gpu_line()
     log(f"gpu: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2034,31 +2346,47 @@ def main() -> int:
                         instruct)
     bucket_c = -(-s_c // 64) * 64
 
+    phase("kernel checks")
     timer = Timer()
     a = check_kernel_a(timer, main_s=bucket_c)
+    a_bwd = check_kernel_a_bwd(timer)
     b = check_kernel_b(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     c = check_kernel_c(timer, main_t=bucket_c + 256, main_len=s_c + 128)
     paged = check_paged(timer)
     g = check_kernel_g(timer)
     quant = check_quant(timer)
     del timer
+    phase("small-model checks")
     check_small_model(tok, sv)
     check_small_engine(tok, sv)
     check_small_encoder()
-    counters = [flash_attention, flash_decode_attention, ragged_decode_attention,
-                paged_decode_attention_dense, paged_decode_attention_dma,
-                paged_decode_attention, activation1d_kernel, quant_matmul]
+    check_small_train()
+    counters = [flash_attention, flash_attention_bwd, flash_decode_attention,
+                ragged_decode_attention, paged_decode_attention_dense,
+                paged_decode_attention_dma, paged_decode_attention, activation1d_kernel,
+                quant_matmul]
+    phase("SFT path")
+    t_tr = time.perf_counter()
+    trained = run_training(counters)
+    log(f"  SFT path wall {time.perf_counter() - t_tr:.1f} s")
+    phase("synthesis path")
     model, params, cfg, codec, launches = run_main_path(tok, sv, counters)
+    for name, n in trained.items():
+        launches[name] += n
+    phase("engines")
     for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
                                counters).items():
         launches[name] += n
+    phase("speculative decoding")
     log("speculative decoding: Llama-3.2-1B target, window (262, 65542)")
     t_sp = time.perf_counter()
     for name, n in run_speculative(tok, sv, params, cfg, codec.encoder, counters).items():
         launches[name] += n
     log(f"  sp1 + sp2 wall {time.perf_counter() - t_sp:.1f} s")
+    phase("serving CLIs")
     for name, n in run_serving(tok, sv, params, cfg, counters).items():
         launches[name] += n
+    phase("done")
     log(f"launch counts summed over the main paths: {launches}")
 
     def row(fn, source, replaces, numbers):
@@ -2068,6 +2396,9 @@ def main() -> int:
     kernels = [
         row(flash_attention, "flash_attention.cu", "tts_max_tpu/ops/pallas_attention.py:79",
             a),
+        row(flash_attention_bwd, "flash_attention_bwd.cu",
+            "tts_max_tpu/ops/pallas_attention.py:118 (and tts_max_tpu/ops/attention.py:88)",
+            a_bwd),
         row(flash_decode_attention, "flash_decode.cu", "tts_max_tpu/ops/pallas_decode.py:363",
             b),
         row(ragged_decode_attention, "ragged_decode.cu",

@@ -453,3 +453,94 @@ def test_speculative_draft_equal_to_target_on_the_card():
     ref = generate(params, cfg, toks, lens, None, sp=sp, max_new_tokens=32, eos_id=-1)
     assert torch.equal(res.tokens, ref.tokens)
     assert res.steps == -(-31 // 5)
+
+
+# --- training: kernel A' (attention's backward) and the autograd Function ------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,kv_len", [
+    (2, 300, 32, 8, 64, torch.bfloat16, None),
+    (1, 200, 8, 8, 128, torch.float32, 137),
+    (1, 257, 16, 2, 64, torch.bfloat16, 200),
+    (2, 128, 8, 2, 128, torch.float32, None),
+])
+def test_flash_attention_bwd_kernel_matches_plain(b, s, hq, hkv, d, dtype, kv_len):
+    """Kernel A' against the plain backward within GRAD_TOL: bf16 and fp32,
+    D 64 and 128, tails, kv_len < S, n_rep 1, 4 and 8."""
+    from tts_max_tpu_torch.ops.attention import causal_attention_bwd, grad_tol_ratio
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+               for h in (hq, hkv, hkv))
+    go = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
+    out, lse = flash_attention_fwd(q, k, v, True, kv_len, with_lse=True)
+    torch.testing.assert_close(out, flash_attention_fwd(q, k, v, True, kv_len)[0],
+                               rtol=0, atol=0)
+    grads = flash_attention_bwd(q, k, v, out, lse, go, True, kv_len)
+    refs = causal_attention_bwd(q, k, v, go, kv_len=kv_len)
+    for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert x.dtype == dtype
+        assert grad_tol_ratio(x, r) <= 1.0, name
+
+
+@pytest.mark.gpu
+def test_flash_attention_output_keeps_its_grad_fn_on_the_card():
+    """On a CUDA input that requires grad the output stays in the graph, and
+    the grads match the plain autograd Function on the CPU. (A wrapper that
+    launched kernel A through ctypes and returned its output, as before the
+    Function, fails the grad_fn assertion.)"""
+    _cuda()
+    g = torch.Generator(device="cpu").manual_seed(2)
+    x = [torch.randn(2, 96, h, 64, generator=g) for h in (8, 2, 2)]
+    go = torch.randn(2, 96, 8, 64, generator=g)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v = (t.detach().to(dev).requires_grad_(True) for t in x)
+        out = flash_attention(q, k, v)
+        assert out.grad_fn is not None, dev
+        (out * go.to(dev)).sum().backward()
+        grads[dev] = (q.grad.cpu(), k.grad.cpu(), v.grad.cpu())
+    from tts_max_tpu_torch.ops.attention import grad_tol_ratio
+
+    for a, r in zip(grads["cuda"], grads["cpu"]):
+        assert grad_tol_ratio(a, r) <= 1.0
+
+
+@pytest.mark.gpu
+def test_every_parameter_gets_a_grad_on_the_card():
+    """A 2-layer model's loss on the card gives every leaf a finite, non-zero
+    grad; wq, wk, wv and attn_norm reach the loss only through attention."""
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.training import optim, train_step as ts
+
+    _cuda()
+    cfg = llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, max_seq_len=128, dtype=torch.bfloat16,
+                            remat=True)
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    ids = torch.randint(0, 256, (2, 100), device="cuda")
+    _, _, grads = ts._loss_and_grads(params, cfg, {"input_ids": ids, "labels": ids}, 32)
+    names = []
+    for path, grad in optim.tree_items(grads):
+        names.append(path)
+        assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0, path
+    for want in ("layers/attn/wq/kernel", "layers/attn/wk/kernel", "layers/attn/wv/kernel",
+                 "layers/attn_norm/scale"):
+        assert want in names
+
+
+@pytest.mark.gpu
+def test_flash_attention_raises_on_inputs_the_backward_does_not_take():
+    _cuda()
+    q, k, v = (torch.randn(1, 64, h, 64, device="cuda", requires_grad=True) for h in (4, 2, 2))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, v, causal=False)
+    q32, k32, v32 = (torch.randn(1, 64, h, 32, device="cuda", requires_grad=True)
+                     for h in (4, 2, 2))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q32, k32, v32)
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(*(t.detach().half().requires_grad_(True) for t in (q, k, v)))

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports no JAX, nothing of ``tts_max_tpu``, no
-``transformers`` and no ``safetensors`` (the card's machine has none of
-them), and nothing of the repository's ``tools`` package (its CLIs are
+"""The port stands alone: it imports no JAX (nor ``optax`` or ``orbax``),
+nothing of ``tts_max_tpu``, no ``transformers`` and no ``safetensors`` (the
+card's machine has none of them), and nothing of the repository's ``tools`` package (its CLIs are
 JAX's; the port has its own in ``tts_max_tpu_torch/tools``); nor do the
 scripts that drive it on the card (``chip_smoke.py``,
 ``tools/profile_torch_synthesis.py``)."""
@@ -15,7 +15,7 @@ PKG = ROOT / "tts_max_tpu_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
-_BLOCKED = rf"(?:jax\b|transformers\b|safetensors\b|tools\b|{_JAX_PKG})"
+_BLOCKED = rf"(?:jax\b|optax\b|orbax\b|transformers\b|safetensors\b|tools\b|{_JAX_PKG})"
 _IMPORT = re.compile(rf"^\s*(?:import\s+{_BLOCKED}|from\s+{_BLOCKED}[\s.])", re.MULTILINE)
 
 
@@ -28,6 +28,8 @@ def _modules():
 
 def test_import_regex_tells_the_packages_apart():
     assert _IMPORT.search("import jax.numpy as jnp")
+    assert _IMPORT.search("import optax")
+    assert _IMPORT.search("    import orbax.checkpoint as ocp")
     assert _IMPORT.search("from tts_max_tpu.models import llama")
     assert _IMPORT.search("  from tts_max_tpu import native")
     assert not _IMPORT.search("from tts_max_tpu_torch.models import llama")
@@ -66,6 +68,8 @@ def test_every_module_imports_without_jax():
     code = (
         "import sys, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['optax'] = None\n"
+        "sys.modules['orbax'] = None\n"
         "sys.modules['transformers'] = None\n"
         "sys.modules['safetensors'] = None\n"
         "sys.modules['tools'] = None\n"
@@ -76,7 +80,8 @@ def test_every_module_imports_without_jax():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'tts_max_tpu'"
         " or m.startswith('tts_max_tpu.')"
-        " or m in ('jax', 'transformers', 'safetensors', 'tools') and sys.modules[m]]\n"
+        " or m in ('jax', 'optax', 'orbax', 'transformers', 'safetensors', 'tools')"
+        " and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )

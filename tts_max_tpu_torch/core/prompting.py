@@ -1,8 +1,9 @@
-"""Prompt compilation for inference.
+"""Prompt compilation for training and inference.
 
-Copy of the inference side of ``tts_max_tpu/core/prompting.py`` (the port
-imports nothing of the JAX package; the training prompt waits for the
-training slice). The inference prompt concatenates the audio-prompt
+Copy of ``tts_max_tpu/core/prompting.py`` (the port imports nothing of the
+JAX package). A training sample is the user message, a newline, and the
+closed assistant message ``<|speech_start|>`` + speech tokens +
+``<|speech_end|>``. The inference prompt concatenates the audio-prompt
 transcript with the text to synthesize, and leaves the assistant message
 open after ``<|speech_start|>`` followed by the prompt's speech tokens.
 """
@@ -57,4 +58,21 @@ def compile_inference_prompt(
         transcript = text_to_synthesize
     user = _user_message_body(format_transcript(transcript), voice_description)
     assistant = constants.SPEECH_START_TOKEN + format_speech_tokens(speech_ids)
+    return user + "\n" + assistant
+
+
+def compile_training_prompt(
+    transcript: str,
+    speech_ids: Sequence[int],
+    voice_description: str = "",
+) -> str:
+    """Full training example: user message + "\\n" + closed assistant message."""
+    if len(speech_ids) == 0:
+        raise ValueError("Speech IDs are empty!")
+    user = _user_message_body(format_transcript(transcript), voice_description)
+    assistant = (
+        constants.SPEECH_START_TOKEN
+        + format_speech_tokens(speech_ids)
+        + constants.SPEECH_END_TOKEN
+    )
     return user + "\n" + assistant

@@ -39,6 +39,16 @@
 // [kv_len, S) are not filled: the zero-padded input gives p = 0 against
 // finite V, as in the Pallas kernel (a NaN there would reach the output).
 //
+// Training: with a non-null lse pointer both paths also write each query
+// row's log-sum-exp of the scaled scores, fp32 [B, Hq, S], IN BASE 2:
+// lse[b, h, s] = log2(sum_k 2^(log2(e) * D^-1/2 * q.k)) over the row's
+// unmasked keys, which is the natural log-sum-exp times log2(e). The
+// tensor-core path works in base 2 already (its running max is scaled by
+// log2(e)), so the value is m + log2(l); the fp32 path converts its natural
+// m + log(l). The backward kernel (flash_attention_bwd.cu) recomputes each
+// probability as exp2(log2(e) * D^-1/2 * q.k - lse). Serving passes null and
+// the kernels run exactly as without it.
+//
 // fp32 (flash_fwd_kernel) stays on the CUDA cores: the tensor cores would
 // round fp32 inputs, and the fp32 small-model check runs this path. One
 // block of 256 threads per (q tile, head, batch) stages the scaled Q tile
@@ -63,8 +73,8 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Hq,
-                 int Hkv, int kv_len, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int S, int Hq, int Hkv, int kv_len, int causal, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D+1], pre-scaled
   float* Ks = Qs + BQ * (D + 1);    // [BK][D+1]
@@ -188,12 +198,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D / 16; ++c)
       ttsk::store(&ob[qp * q_stride + tx + 16 * c], acc[i][c] * inv);
+    if (lse != nullptr && tx == 0)  // l[i] is the whole row's sum in all 16 lanes
+      lse[(static_cast<long>(b) * Hq + h) * S + qp] = (m[i] + logf(l[i])) * ttsk::mma::LOG2E;
   }
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int Hq, int Hkv, int kv_len, int causal, float scale,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int S, int Hq, int Hkv, int kv_len, int causal, float scale,
                        cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
@@ -202,8 +214,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
   flash_fwd_kernel<float, D><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Hq, Hkv, kv_len, causal,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Hq, Hkv, kv_len,
+      causal, scale);
   return cudaGetLastError();
 }
 
@@ -227,8 +239,8 @@ struct TcConfig {
 template <int D>
 __global__ void __launch_bounds__(TC_NT, 1)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int S, int Hq, int Hkv,
-             int kv_len, int causal, float scale) {
+             const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+             int S, int Hq, int Hkv, int kv_len, int causal, float scale) {
   constexpr int LD = TcConfig<D>::LD;
   constexpr int CH = D / 8;  // 16-byte pieces per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -377,6 +389,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int qp = wq0 + g + 8 * i;
     if (qp >= S) continue;
+    if (lse != nullptr && t4 == 0)  // m is base 2 here: lse = m + log2(sum)
+      lse[(static_cast<long>(b) * Hq + h) * S + qp] = m[i] + log2f(sum);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -386,8 +400,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S,
-                      int Hq, int Hkv, int kv_len, int causal, float scale,
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
+                      int B, int S, int Hq, int Hkv, int kv_len, int causal, float scale,
                       cudaStream_t stream) {
   constexpr int smem = TcConfig<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -396,29 +410,31 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
   flash_fwd_tc<D><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), S, Hq, Hkv, kv_len, causal, scale);
+      static_cast<bf16*>(o), lse, S, Hq, Hkv, kv_len, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). The bf16 path
-// needs 16-byte aligned q, k, v (the wrapper checks). Returns
-// cudaGetLastError() after the launch.
+// needs 16-byte aligned q, k, v (the wrapper checks). lse: null, or fp32
+// [B, Hq, S] for each row's base-2 log-sum-exp. Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int Hq, int Hkv, int D,
-                                   int kv_len, int causal, float scale, int dtype,
+                                   void* o, void* lse, int B, int S, int Hq, int Hkv,
+                                   int D, int kv_len, int causal, float scale, int dtype,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (Hkv <= 0 || Hq % Hkv != 0 || kv_len < 1 || kv_len > S)
     return cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_f32<64>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_f32<128>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 1 && D == 64)
-    return launch_tc<64>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_tc<64>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 1 && D == 128)
-    return launch_tc<128>(q, k, v, o, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_tc<128>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -32,6 +32,11 @@ from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tts_max_tpu_torch.core.constants import FIXED_VOCAB_SIZE
 from tts_max_tpu_torch.device import resolve_device
@@ -68,6 +73,12 @@ class LlamaConfig:
     max_seq_len: int = 2048
     tie_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16  # compute dtype
+    # Training only: recompute each decoder layer in the backward pass
+    # (``torch.utils.checkpoint``). None recomputes the whole layer (least
+    # memory); "dots" saves the matrix products' outputs and recomputes only
+    # the elementwise work, as JAX's ``dots_saveable`` policy does.
+    remat: bool = False
+    remat_policy: str | None = None
 
     @property
     def q_dim(self) -> int:
@@ -133,6 +144,21 @@ def llama31_8b_config(**over) -> LlamaConfig:
     )
 
 
+ARCHITECTURES = {
+    "llama-tiny": tiny_config,
+    "llama-1b": llama32_1b_config,
+    "llama-3.2-1b": llama32_1b_config,
+    "llama-8b": llama31_8b_config,
+    "llama-3.1-8b": llama31_8b_config,
+}
+
+
+def config_for_architecture(name: str, **over) -> LlamaConfig:
+    if name not in ARCHITECTURES:
+        raise ValueError(f"unknown architecture {name!r}; have {sorted(ARCHITECTURES)}")
+    return ARCHITECTURES[name](**over)
+
+
 # --- init -------------------------------------------------------------------
 
 
@@ -175,6 +201,13 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((cfg.dim, cfg.vocab_size), cfg.dim)
     return params
+
+
+def param_count(params: Params) -> int:
+    """Number of elements over every tensor of a (plain) parameter tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
 
 
 # --- forward ----------------------------------------------------------------
@@ -278,16 +311,59 @@ def slice_logits_head(params: Params, cfg: LlamaConfig, lo: int, size: int):
     return k[:, lo:lo + size]
 
 
-def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence causal forward: tokens [B, S] -> logits [B, S, V] (fp32)."""
+def _unbind_layers(params: Params, n_layers: int) -> list[Params]:
+    """Every layer's parameters, from one ``unbind`` of each stacked tensor:
+    under autograd the stacked tensor's gradient is then one ``stack`` of
+    the layers' gradients, not a full-size zero tensor per layer."""
+    def walk(p):
+        return ({k: walk(v) for k, v in p.items()} if isinstance(p, dict)
+                else p.unbind(0))
+
+    def pick(p, i):
+        return {k: pick(v, i) for k, v in p.items()} if isinstance(p, dict) else p[i]
+
+    stacked = walk(params["layers"])
+    return [pick(stacked, i) for i in range(n_layers)]
+
+
+def _decoder_layer(h, lp, cos, sin, cfg: LlamaConfig):
+    h, _, _ = _attn_block(h, lp, cos, sin, cfg)
+    return _mlp_block(h, lp, cfg)
+
+
+def _dots_context():
+    """Selective checkpoint of ``remat_policy="dots"``: the matrix products'
+    outputs are saved, everything else is recomputed in the backward."""
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.bmm.default, aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Causal forward through the layer stack only: tokens [B, S] -> PRE-norm
+    hidden states [B, S, D]. Callers apply ``_logits`` (the final norm and
+    head) or, in training, a chunked loss that never holds the full
+    [B, S, V] logits (``training/train_step.py``). With ``cfg.remat`` each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant)."""
     cos, sin = rope_table(cfg.head_dim, tokens.shape[1], cfg.rope_theta,
                           cfg.use_llama3_rope_scaling, tokens.device)
     h = _embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        h, _, _ = _attn_block(h, lp, cos, sin, cfg)
-        h = _mlp_block(h, lp, cfg)
-    return _logits(h, params, cfg)
+    for lp in _unbind_layers(params, cfg.n_layers):
+        if cfg.remat:
+            kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+            h = checkpoint(_decoder_layer, h, lp, cos, sin, cfg, use_reentrant=False, **kw)
+        else:
+            h = _decoder_layer(h, lp, cos, sin, cfg)
+    return h
+
+
+def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal forward: tokens [B, S] -> logits [B, S, V] (fp32)."""
+    return _logits(forward_hidden(params, cfg, tokens), params, cfg)
 
 
 # --- KV-cached generation ---------------------------------------------------

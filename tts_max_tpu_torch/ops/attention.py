@@ -25,6 +25,35 @@ NEG_INF = -1e30
 # output by far more than that.
 KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 
+# How far the backward kernel's gradients (dq, dk, dv) may lie from their
+# plain version, as (rtol, atol) in |g - ref| <= rtol |ref| + atol max|ref|
+# (``grad_tol_ratio``), the max over the whole tensor. Unlike a forward
+# output, a gradient element is a sum with cancellation: dk and dv add up to
+# S query rows, and with GQA the n_rep heads of a group, so a different sum
+# order moves an element by ~2^-24 times the sum of its terms' magnitudes,
+# which is set by the tensor's scale, not by the element; hence the atol
+# relative to max|ref|. In fp32 the kernel recomputes the probabilities from
+# kernel A's log-sum-exp and sums in tiles: rtol 1e-4, atol 1e-5 of the max.
+# In bf16 both versions compute in fp32 and round once (one bf16 ulp, at
+# most 2^-7 |ref|), and the kernel's D = sum(dO * O) reads O as kernel A
+# stored it, rounded to bf16 (2^-9 relative per element), which moves dS by
+# P * dD; that error scales with the tensor, so atol is 2^-8 of the max. A
+# dropped key row (its dk, dv rows zero) or a dropped query row (the last
+# key's dv is that row's alone) moves an element by about its own size.
+GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
+
+
+def grad_tol_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / (rtol |ref| + atol max|ref|) under ``GRAD_TOL`` of
+    ref's dtype: at most 1 where the gradients agree. Non-finite values give
+    inf."""
+    rtol, atol = GRAD_TOL[ref.dtype]
+    o, r = out.float(), ref.float()
+    if not bool(torch.isfinite(o).all()):
+        return float("inf")
+    limit = rtol * r.abs() + atol * r.abs().max().clamp_min(1e-30)
+    return float(((o - r).abs() / limit).max())
+
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     """[B, S, n_kv, D] -> [B, S, n_kv * n_rep, D] for GQA."""
@@ -61,6 +90,40 @@ def causal_attention(
     logits = logits.masked_fill(~valid, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+
+
+def causal_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    *,
+    causal: bool = True,
+    kv_len: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel A's backward (the JAX package's
+    ``pallas_attention._bwd``): dq, dk, dv of ``causal_attention`` for the
+    output cotangent g [B, S, Hq, D], each in its input's dtype.
+
+    The ``kv_len`` rule is JAX's: q, k, v and g are cut to their first
+    ``kv_len`` rows, differentiated there, and padded back with zeros. So
+    query rows at or past ``kv_len`` get dq = 0 and add nothing to dk and
+    dv, although their forward outputs are not zero; plain autograd over
+    the whole sequence would count them. The arithmetic is torch autograd
+    through ``causal_attention``'s fp32 math, rounded once to each input's
+    dtype.
+    """
+    s = q.shape[1]
+    n = s if kv_len is None else kv_len
+    with torch.enable_grad():
+        qs, ks, vs = (x[:, :n].detach().requires_grad_(True) for x in (q, k, v))
+        out = causal_attention(qs, ks, vs, causal=causal)
+        dq, dk, dv = torch.autograd.grad(out, (qs, ks, vs), g[:, :n].to(out.dtype))
+
+    def repad(x):
+        return x if n == s else torch.nn.functional.pad(x, (0, 0, 0, 0, 0, s - n))
+
+    return repad(dq), repad(dk), repad(dv)
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

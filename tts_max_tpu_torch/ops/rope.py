@@ -48,8 +48,12 @@ def rope_table(
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
 def _rope_table(head_dim, max_len, theta, use_llama3_scaling, device):
-    # cached: decode asks for the same table on every step
+    # cached: decode asks for the same table on every step. Built outside
+    # inference mode even when the first caller runs in it (generate does),
+    # so that a training step in the same process may save the table for
+    # its backward pass.
     freqs = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
     if use_llama3_scaling:
         freqs = llama3_scale_freqs(freqs)

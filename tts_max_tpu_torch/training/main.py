@@ -1,0 +1,227 @@
+"""SFT / pretraining entry point (counterpart of ``tts_max_tpu/training/main.py``).
+
+    python -m tts_max_tpu_torch.training.main --config_path cfg.json \\
+        [--dry_run] [--pretraining_mode] [--total_steps N] [--device cuda|cpu]
+
+config -> byte tokenizer and seeded weights -> weighted datasets and loaders
+-> steps math -> cosine schedule and AdamW -> optional dry-run step -> loop
+(eval, checkpoints, resume) -> final model. It runs on one device, the card
+unless ``--device cpu`` is given.
+
+Not ported yet: the HF-directory branch of ``build_model_and_tokenizer``
+(its ``tokenizer.json`` reader) and the quality validation of
+``--codec_*_checkpoint`` (both ROADMAP.md queue 1 item 1b), and any mesh of
+more than one device (queue 1 item 4); each raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import math
+import os
+import time
+from typing import NamedTuple
+
+import torch
+
+from tts_max_tpu_torch.core.config import ExperimentConfig, Strategy
+from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer
+from tts_max_tpu_torch.data import builder
+from tts_max_tpu_torch.data.collate import collate
+from tts_max_tpu_torch.data.loader import DataLoader
+from tts_max_tpu_torch.data.normalization import create as create_normalizer
+from tts_max_tpu_torch.device import resolve_device
+from tts_max_tpu_torch.models import llama
+from tts_max_tpu_torch.training import optim, train_step as ts
+from tts_max_tpu_torch.training.checkpointing import (
+    CheckpointManager,
+    save_config,
+    save_final_model,
+)
+from tts_max_tpu_torch.training.loop import run as run_loop
+from tts_max_tpu_torch.utils.logging import get_logger, setup_logging
+from tts_max_tpu_torch.utils.metrics_logging import MetricsLogger
+
+log = get_logger(__name__)
+
+
+class TrainResult(NamedTuple):
+    """What ``run_training`` did: every step's metrics, seconds (host clock
+    around the step, which ends reading its loss from the device) and
+    padded batch tokens, the statistics, and the seconds of each checkpoint
+    save and of the final model's."""
+
+    steps: list  # (step, StepMetrics, seconds, padded tokens)
+    statistics: object
+    checkpoint_seconds: list
+    final_model_seconds: float
+
+
+def build_model_and_tokenizer(config: ExperimentConfig, device="cuda"):
+    """Tokenizer, fp32 params on ``device`` and model config.
+
+    A local HF directory as ``model_name`` needs the port's own
+    ``tokenizer.json`` reader, which comes with ROADMAP.md queue 1 item 1b;
+    otherwise the named architecture with the air-gapped byte tokenizer and
+    weights drawn by the port's seeded ``init_params`` (torch's generator,
+    so not JAX's numbers) is the from-scratch path."""
+    mp = config.modeling.parameters
+    if os.path.isdir(mp.model_name):
+        raise NotImplementedError(
+            f"model_name {mp.model_name!r} is an HF directory: its tokenizer.json "
+            "reader comes with ROADMAP.md queue 1 item 1b; set model_name to a "
+            "name that is not a directory to train from scratch with "
+            "modeling.parameters.architecture")
+    arch = mp.architecture or "llama-tiny"
+    tokenizer = build_byte_tokenizer(mp.codebook_size)
+    cfg = llama.config_for_architecture(
+        arch, vocab_size=mp.vocab_size or len(tokenizer), max_seq_len=mp.max_seq_len)
+    params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                               seed=config.training.seed, device=device)
+    return tokenizer, params, cfg
+
+
+def _check_one_device(config: ExperimentConfig) -> None:
+    m = config.training.mesh
+    devices = (1 if m.data == -1 else m.data) * m.fsdp * m.tensor
+    if devices != 1 or config.training.strategy.canonical() is Strategy.FSDP_TP:
+        raise NotImplementedError(
+            f"mesh {dataclasses.asdict(m)} with strategy "
+            f"{config.training.strategy.value} needs more than one device; "
+            "multi-device training is ROADMAP.md queue 1 item 4")
+
+
+def run_training(config: ExperimentConfig, args) -> TrainResult | None:
+    setup_logging(0)
+    device = resolve_device(args.device)
+    _check_one_device(config)
+
+    tokenizer, params, model_cfg = build_model_and_tokenizer(config, device)
+    log.info("Model: %s params, vocab %d, device %s", llama.param_count(params),
+             model_cfg.vocab_size, device)
+
+    tcfg = config.training
+    if tcfg.precision == "bf16":
+        params = optim.tree_map(
+            lambda x: x.to(torch.bfloat16) if x.is_floating_point() else x, params)
+    if tcfg.gradient_checkpointing:
+        model_cfg = dataclasses.replace(
+            model_cfg, remat=True,
+            remat_policy="dots" if tcfg.remat_policy == "dots" else None)
+
+    normalizer = create_normalizer(config.modeling.parameters.enable_text_normalization)
+    mp = config.modeling.parameters
+    train_ds = builder.merge_datasets(
+        tokenizer, config.train_weighted_datasets, mp.max_seq_len, "train",
+        args.pretraining_mode, normalizer, config.dataset)
+    val_ds = (builder.merge_datasets(
+        tokenizer, config.val_weighted_datasets, mp.max_seq_len, "val",
+        args.pretraining_mode, normalizer, config.dataset)
+        if config.val_weighted_datasets else None)
+
+    collate_fn = functools.partial(collate, pad_token_id=tokenizer.pad_token_id,
+                                   max_seq_len=mp.max_seq_len)
+    mk_loader = functools.partial(DataLoader, collate_fn=collate_fn, seed=tcfg.seed,
+                                  process_index=0, process_count=1)
+    train_loader = mk_loader(train_ds, tcfg.batch_size)
+    val_loader = mk_loader(val_ds, tcfg.batch_size, shuffle=False) if val_ds else None
+
+    steps_per_epoch = max(
+        1, len(train_ds) // (tcfg.batch_size * tcfg.gradient_accumulation_steps))
+    total_steps = args.total_steps or int(math.ceil(steps_per_epoch * tcfg.num_train_epochs))
+    warmup = max(1, int(total_steps * tcfg.warmup_ratio))
+    log.info("steps/epoch=%d total=%d warmup=%d", steps_per_epoch, total_steps, warmup)
+
+    schedule = (
+        optim.cosine_warmup_schedule(tcfg.learning_rate, warmup, total_steps)
+        if tcfg.lr_scheduler == "cosine" and total_steps > warmup
+        else optim.constant_schedule(tcfg.learning_rate))
+    tx = optim.create_optimizer(schedule, tcfg.betas, tcfg.weight_decay,
+                                mu_dtype=tcfg.adam_mu_dtype)
+    opt_state = tx.init(params)
+    step_fn = functools.partial(ts.train_step, cfg=model_cfg, tx=tx,
+                                gradient_clip_value=tcfg.gradient_clip_value,
+                                loss_chunk_size=tcfg.loss_chunk_size)
+    eval_fn = functools.partial(ts.eval_step, cfg=model_cfg,
+                                loss_chunk_size=tcfg.loss_chunk_size)
+
+    if args.dry_run:
+        micro = next(iter(train_loader))
+        macro = {"input_ids": micro["input_ids"][None], "labels": micro["labels"][None]}
+        _, _, m = step_fn(params, opt_state, macro)
+        log.info("Dry run loss: %.4f", m.loss)
+        return None
+
+    os.makedirs(config.output_dir, exist_ok=True)
+    save_config(config.output_dir, config)
+    mgr = CheckpointManager(os.path.join(config.output_dir, "checkpoints"),
+                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints)
+
+    statistics = None
+    resume = config.checkpointing.checkpoint_file_to_resume_from
+    if resume or mgr.latest_step() is not None:
+        try:
+            params, opt_state, statistics = mgr.restore(
+                None, params, opt_state,
+                weights_only=config.checkpointing.only_load_model_weights)
+            log.info("Resumed from step %s", statistics.step if statistics else 0)
+        except FileNotFoundError:
+            pass
+
+    vtype = config.checkpointing.validation_type
+    if vtype and vtype != "none" and args.codec_decoder_checkpoint:
+        raise NotImplementedError(
+            f"validation_type {vtype!r}: quality validation comes with ROADMAP.md "
+            "queue 1 item 1b")
+
+    history = []
+
+    def timed_step(p, o, macro):
+        t0 = time.perf_counter()
+        p, o, m = step_fn(p, o, macro)  # ends reading the loss from the device
+        history.append((m, time.perf_counter() - t0, int(macro["input_ids"].size)))
+        return p, o, m
+
+    metrics_logger = MetricsLogger(config.output_dir, experiment_name=config.experiment_name,
+                                   use_wandb=args.use_wandb, is_main=True)
+    start = statistics.step if statistics else 0
+    params, opt_state, stats = run_loop(
+        train_step=timed_step, eval_step=eval_fn, params=params, opt_state=opt_state,
+        train_loader=train_loader, val_loader=val_loader, config=config,
+        total_training_steps=total_steps, steps_per_epoch=steps_per_epoch,
+        checkpoint_manager=mgr, lr_schedule=schedule, statistics=statistics,
+        metrics_logger=metrics_logger)
+    metrics_logger.close()
+    mgr.wait()
+    t0 = time.perf_counter()
+    path = save_final_model(config.output_dir, params)
+    final_s = time.perf_counter() - t0
+    log.info("Final model saved to %s in %.2f s", path, final_s)
+    mgr.close()
+    steps = [(start + i + 1, *h) for i, h in enumerate(history)]
+    return TrainResult(steps, stats, list(mgr.save_seconds), final_s)
+
+
+def main(argv=None) -> TrainResult | None:
+    parser = argparse.ArgumentParser(description="SpeechLM SFT/pretraining")
+    parser.add_argument("--config_path", required=True)
+    parser.add_argument("--dry_run", action="store_true")
+    parser.add_argument("--pretraining_mode", action="store_true")
+    parser.add_argument("--total_steps", type=int, default=0)
+    parser.add_argument("--use_wandb", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu (the plain PyTorch path)")
+    parser.add_argument("--codec_encoder_checkpoint", default="",
+                        help="codec encoder for quality validation (not ported yet)")
+    parser.add_argument("--codec_decoder_checkpoint", default="")
+    parser.add_argument("--validation_prompt_wavs", nargs="*", default=[],
+                        help="wav_path:transcript pairs for random-phrases validation")
+    args = parser.parse_args(argv)
+    config = ExperimentConfig.from_json(args.config_path)
+    return run_training(config, args)
+
+
+if __name__ == "__main__":
+    main()
