@@ -10,8 +10,10 @@ printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``):
 kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
 1 and 8, kv_len < S, n_rep 1 and 8), kernel A' (attention's backward, for
 training: SFT's layer at batch 4 x 2048, fp32, D = 128, a tail, kv_len < S,
-n_rep 1, beside SDPA's backward; and A with its log-sum-exp write beside A
-without it), kernel B (contiguous decode), kernel C (ragged decode,
+n_rep 1, a sharp softmax, a ragged S = 130, batch 8, beside SDPA's backward;
+its library's SASS must hold tensor-core and cp.async instructions; and A
+with its log-sum-exp and residual writes beside A without them), kernel B
+(contiguous decode), kernel C (ragged decode,
 the contiguous engine's), the paged decode kernel behind its three entry
 points (D, E, F) and D's stacked form (bf16 and int8 pools, block sizes
 16, 48 and 64), and kernel G (the codec encoder's
@@ -300,6 +302,9 @@ PREV_MS = {
     ("Q", "1B w_gate/w_up int8 m=16"): 0.0462, ("Q", "1B w_gate/w_up int4-g128 m=16"): 0.0372,
     ("Q", "1B tied head int8 m=1"): 0.0601, ("Q", "1B tied head int8 m=8"): 0.1679,
     ("Q", "1B tied head int8 m=16"): 0.3767,
+    # kernel A''s first design (CUDA cores, fp32 math)
+    ("A'", "main"): 11.414, ("A'", "fp32 S=1024"): 1.3723, ("A'", "D=128 S=1024"): 2.2485,
+    ("A'", "S=1000"): 3.4368, ("A'", "kv_len<S"): 1.0774, ("A'", "n_rep 1"): 0.9905,
 }
 
 
@@ -381,22 +386,38 @@ def attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None) -> tuple[float,
 
 
 # SFT's layer (Llama-3.2-1B at batch 4 x 2048) first, then fp32, Llama-3.1-8B's
-# head_dim, a tail, kv_len < S and n_rep 1
-BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len)
-    ("main", 4, 2048, 32, 8, 64, torch.bfloat16, None),
-    ("fp32 S=1024", 1, 1024, 32, 8, 64, torch.float32, None),
-    ("D=128 S=1024", 1, 1024, 32, 8, 128, torch.bfloat16, None),
-    ("S=1000", 4, 1000, 32, 8, 64, torch.bfloat16, None),
-    ("kv_len<S", 1, 1024, 32, 8, 64, torch.bfloat16, 793),
-    ("n_rep 1", 1, 1024, 32, 32, 64, torch.bfloat16, None),
+# head_dim, a tail, kv_len < S, n_rep 1, a sharp softmax (q x 4: D from the
+# bf16-rounded O alone puts dq and dk outside GRAD_TOL there), a small ragged
+# case (partial tiles in both kernels) and batch 8
+BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len, q_scale)
+    ("main", 4, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),
+    ("fp32 S=1024", 1, 1024, 32, 8, 64, torch.float32, None, 1.0),
+    ("D=128 S=1024", 1, 1024, 32, 8, 128, torch.bfloat16, None, 1.0),
+    ("S=1000", 4, 1000, 32, 8, 64, torch.bfloat16, None, 1.0),
+    ("kv_len<S", 1, 1024, 32, 8, 64, torch.bfloat16, 793, 1.0),
+    ("n_rep 1", 1, 1024, 32, 32, 64, torch.bfloat16, None, 1.0),
+    ("sharp q*4", 1, 1024, 32, 8, 64, torch.bfloat16, None, 4.0),
+    ("ragged S=130", 2, 130, 32, 8, 64, torch.bfloat16, 97, 1.0),
+    ("B=8 S=1024", 8, 1024, 32, 8, 64, torch.bfloat16, None, 1.0),
 ]
+
+
+def bwd_inputs(gen, b, s, hq, hkv, d, dtype, q_scale):
+    """q (times q_scale, in fp32), k, v and the output cotangent of one
+    BWD_CASES row, drawn from ``gen`` on the card."""
+    q = (torch.randn(b, s, hq, d, generator=gen, device="cuda") * q_scale).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    g = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+    return q, k, v, g
 
 
 def check_kernel_a_bwd(timer: Timer) -> dict:
     """Kernel A' against its plain version (``causal_attention_bwd``: torch
     autograd through the plain attention under the kv_len rule) at every
-    case of BWD_CASES, within ``GRAD_TOL``, beside SDPA's backward; and
-    kernel A with its log-sum-exp write against A without it."""
+    case of BWD_CASES, within ``GRAD_TOL``, beside SDPA's backward and the
+    first design's time (``PREV_MS``); and kernel A with its log-sum-exp and
+    residual writes against A without them."""
     from tts_max_tpu_torch.ops.attention import GRAD_TOL, causal_attention_bwd, grad_tol_ratio
     from tts_max_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
@@ -407,12 +428,10 @@ def check_kernel_a_bwd(timer: Timer) -> dict:
         f"{ {str(k): v for k, v in GRAD_TOL.items()} } as |g - ref| <= rtol|ref| + atol max|ref|")
     worst, main = 0.0, None
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for (label, b, s, hq, hkv, d, dtype, kv_len) in BWD_CASES:
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-                   for h in (hq, hkv, hkv))
-        g = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
-        out, lse = flash_attention_fwd(q, k, v, True, kv_len, with_lse=True)
-        grads = flash_attention_bwd(q, k, v, out, lse, g, True, kv_len)
+    for (label, b, s, hq, hkv, d, dtype, kv_len, q_scale) in BWD_CASES:
+        q, k, v, g = bwd_inputs(gen, b, s, hq, hkv, d, dtype, q_scale)
+        out, lse, out_lo = flash_attention_fwd(q, k, v, True, kv_len, with_lse=True)
+        grads = flash_attention_bwd(q, k, v, out, lse, g, True, kv_len, out_lo)
         refs = causal_attention_bwd(q, k, v, g, kv_len=kv_len)
         ratios = [grad_tol_ratio(x, r) for x, r in zip(grads, refs)]
         errs = [max_err(x, r) for x, r in zip(grads, refs)]
@@ -420,7 +439,7 @@ def check_kernel_a_bwd(timer: Timer) -> dict:
             raise AssertionError(f"kernel A' {label}: dq/dk/dv at {ratios} of GRAD_TOL "
                                  f"(max abs err {errs})")
         worst = max(worst, *errs)
-        ms = timer.ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, True, kv_len))
+        ms = timer.ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, True, kv_len, out_lo))
         plain_ms = timer.ms(lambda: causal_attention_bwd(q, k, v, g, kv_len=kv_len), iters=5)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
         if kv_len is None:
@@ -436,18 +455,20 @@ def check_kernel_a_bwd(timer: Timer) -> dict:
                                                       retain_graph=True))
         del o_lib
         bound, by = attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len)
+        prev = _prev("A'", label)
         log(f"  {label:13s} B={b} S={s:5d} Hq={hq} Hkv={hkv} D={d:3d} {str(dtype):14s} "
-            f"kv_len={kv_len or s} dq/dk/dv max_abs_err={errs[0]:.3e}/{errs[1]:.3e}/"
-            f"{errs[2]:.3e} ({max(ratios):.2f}x GRAD_TOL)  ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"kv_len={kv_len or s} q*{q_scale:g} dq/dk/dv max_abs_err={errs[0]:.3e}/"
+            f"{errs[1]:.3e}/{errs[2]:.3e} ({'/'.join(f'{r:.2f}' for r in ratios)}x GRAD_TOL)  "
+            f"ms={ms:.4f} prev_ms={prev} plain_ms={plain_ms:.4f} "
             f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by})")
         if label == "main":
             with_lse = timer.ms(lambda: flash_attention_fwd(q, k, v, True, None, with_lse=True))
             without = timer.ms(lambda: flash_attention_fwd(q, k, v, True, None))
-            log(f"  kernel A at the main shape: {with_lse:.4f} ms writing the log-sum-exp, "
-                f"{without:.4f} ms without")
+            log(f"  kernel A at the main shape: {with_lse:.4f} ms writing the log-sum-exp and "
+                f"O's residual, {without:.4f} ms without ({with_lse / without - 1:+.1%})")
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                         bound_by=by)
-        del q, k, v, g, out, lse, grads, refs
+        del q, k, v, g, out, lse, out_lo, grads, refs
     return dict(max_abs_err=worst, **main)
 
 
@@ -1206,6 +1227,33 @@ def _write_train_dataset(path: str) -> None:
         codes_io.write_shard(path, split, codes, index, samples)
 
 
+def write_sft_config(train_dir: str) -> tuple[str, dict, dict, str]:
+    """``example/configs/sft.json`` as users run it, with only the dataset
+    paths (a seeded dataset written under ``train_dir``), the output dir,
+    the checkpoints kept and the vocab changed, written to
+    ``train_dir/sft.json``: (its path, the config, the changes, the data
+    dir)."""
+    import shutil
+
+    shutil.rmtree(train_dir, ignore_errors=True)
+    data = os.path.join(train_dir, "synthetic")
+    _write_train_dataset(data)
+    with open(SFT_CONFIG) as f:
+        cfg = json.load(f)
+    changes = {"train_weighted_datasets": {data: 1.0}, "val_weighted_datasets": {data: 1.0},
+               "output_dir": os.path.join(train_dir, "out")}
+    cfg.update(changes)
+    cfg["checkpointing"]["keep_only_last_n_checkpoints"] = 1
+    # the published width: Llama-3.2-1B with the fixed 193856-token speech
+    # vocab (FIXED_VOCAB_SIZE, what an HF dir of the model carries); the byte
+    # tokenizer's 65806 ids index its first rows
+    cfg["modeling"]["parameters"]["vocab_size"] = FIXED_VOCAB
+    path = os.path.join(train_dir, "sft.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path, cfg, changes, data
+
+
 def run_training(counters) -> dict:
     """SFT at the full width of Llama-3.2-1B through the entry point users
     run, ``python -m tts_max_tpu_torch.training.main --config_path ...``
@@ -1218,22 +1266,7 @@ def run_training(counters) -> dict:
     from tts_max_tpu_torch.models import llama
     from tts_max_tpu_torch.training import main as train_main
 
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    data = os.path.join(TRAIN_DIR, "synthetic")
-    _write_train_dataset(data)
-    with open(SFT_CONFIG) as f:
-        cfg = json.load(f)
-    changes = {"train_weighted_datasets": {data: 1.0}, "val_weighted_datasets": {data: 1.0},
-               "output_dir": os.path.join(TRAIN_DIR, "out")}
-    cfg.update(changes)
-    cfg["checkpointing"]["keep_only_last_n_checkpoints"] = 1
-    # the published width: Llama-3.2-1B with the fixed 193856-token speech
-    # vocab (FIXED_VOCAB_SIZE, what an HF dir of the model carries); the byte
-    # tokenizer's 65806 ids index its first rows
-    cfg["modeling"]["parameters"]["vocab_size"] = FIXED_VOCAB
-    path = os.path.join(TRAIN_DIR, "sft.json")
-    with open(path, "w") as f:
-        json.dump(cfg, f)
+    path, cfg, changes, data = write_sft_config(TRAIN_DIR)
     arch = llama.config_for_architecture(cfg["modeling"]["parameters"]["architecture"],
                                          vocab_size=FIXED_VOCAB)
     L = arch.n_layers
@@ -2319,9 +2352,13 @@ def main() -> int:
     log(f"kernel build (nvcc sm_90a, {len(cuda_build.SOURCES)} sources in "
         f"parallel): {time.perf_counter() - t0:.1f} s")
     for name in cuda_build.SOURCES:
+        entry = ""
         for line in cuda_build.build_log(name).splitlines():
+            if "Compiling entry function" in line:  # e.g. bwd_dkdv_tcILi64E: D = 64
+                m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)EEv", line)
+                entry = m.group(1) if m else ""
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {name} {entry}: {line.strip()}")
             # every kernel is sized to fit its registers; a stack frame (sinf's
             # slow path in act1d) is allowed, and logged on the same line
             if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
@@ -2329,9 +2366,14 @@ def main() -> int:
         counts = sass_counts(cuda_build.library_path(name))
         log(f"  SASS {name}: " + ("not measured (no cuobjdump)" if counts is None else
                                   " ".join(f"{op}={n}" for op, n in counts.items())))
-        # the quantized product's multiply-adds run on the tensor cores
+        # the quantized product's multiply-adds and A''s bf16 products run on
+        # the tensor cores, A''s operands brought in by cp.async
         if name == "quant_matmul" and not (counts and counts["HMMA"] > 0):
             raise AssertionError(f"quant_matmul: no HMMA in its SASS ({counts})")
+        if name == "flash_attention_bwd" and not (counts and counts["HMMA"] > 0
+                                                  and counts["LDGSTS"] > 0):
+            raise AssertionError(f"flash_attention_bwd: no HMMA or LDGSTS in its SASS "
+                                 f"({counts})")
 
     tok = tokenization.build_byte_tokenizer()
     sv = tokenization.speech_vocab(tok)

@@ -117,9 +117,12 @@ def _lse2(q, k, kv_len):
 
 def tiled_bwd(q, k, v, out, g, kv_len, bq, bk):
     """dq, dk, dv as flash_attention_bwd.cu computes them, tile by tile:
-    bwd_delta, then bwd_dkdv (a key tile holds dK, dV and walks the group's
-    heads and the query tiles from the diagonal to kv_len), then bwd_dq (a
-    query tile walks the key tiles up to the diagonal)."""
+    bwd_delta, then the dK/dV kernel (a key tile holds dK, dV and walks the
+    group's heads and the query tiles from the diagonal to kv_len), then the
+    dQ kernel (a query tile walks the key tiles up to the diagonal). Both
+    paths walk so; the bf16 kernels cut a tile pair into passes of 32 or 64
+    columns, which orders the sums inside a pair only, and their rounding is
+    emulated in test_torch_tc_numerics.py."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     n_rep, scale = hq // hkv, d ** -0.5

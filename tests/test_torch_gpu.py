@@ -459,27 +459,39 @@ def test_speculative_draft_equal_to_target_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,kv_len", [
-    (2, 300, 32, 8, 64, torch.bfloat16, None),
-    (1, 200, 8, 8, 128, torch.float32, 137),
-    (1, 257, 16, 2, 64, torch.bfloat16, 200),
-    (2, 128, 8, 2, 128, torch.float32, None),
+@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,kv_len,q_scale", [
+    (2, 300, 32, 8, 64, torch.bfloat16, None, 1.0),
+    (1, 200, 8, 8, 128, torch.float32, 137, 1.0),
+    (1, 257, 16, 2, 64, torch.bfloat16, 200, 1.0),
+    (2, 128, 8, 2, 128, torch.float32, None, 1.0),
+    (1, 1024, 32, 8, 64, torch.bfloat16, None, 4.0),  # sharp: D needs the unrounded O
+    (2, 130, 32, 8, 64, torch.bfloat16, 97, 1.0),     # partial tiles in both kernels
+    (8, 1024, 32, 8, 64, torch.bfloat16, None, 1.0),
+    (1, 333, 8, 2, 128, torch.bfloat16, 301, 4.0),    # D = 128 on the tensor cores
 ])
-def test_flash_attention_bwd_kernel_matches_plain(b, s, hq, hkv, d, dtype, kv_len):
-    """Kernel A' against the plain backward within GRAD_TOL: bf16 and fp32,
-    D 64 and 128, tails, kv_len < S, n_rep 1, 4 and 8."""
+def test_flash_attention_bwd_kernel_matches_plain(b, s, hq, hkv, d, dtype, kv_len, q_scale):
+    """Kernel A' against the plain backward within GRAD_TOL: bf16 (tensor
+    cores) and fp32, D 64 and 128, tails, kv_len < S, n_rep 1, 4 and 8, a
+    sharp softmax (q x 4) and batch 8. Kernel A's output is the same with
+    and without the log-sum-exp and residual writes, and out + out_lo is
+    nearer the fp32 output than out alone."""
     from tts_max_tpu_torch.ops.attention import causal_attention_bwd, grad_tol_ratio
     from tts_max_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
     _cuda()
     g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
-               for h in (hq, hkv, hkv))
+    q = (torch.randn(b, s, hq, d, generator=g, device="cuda") * q_scale).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dtype) for _ in range(2))
     go = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dtype)
-    out, lse = flash_attention_fwd(q, k, v, True, kv_len, with_lse=True)
+    out, lse, out_lo = flash_attention_fwd(q, k, v, True, kv_len, with_lse=True)
     torch.testing.assert_close(out, flash_attention_fwd(q, k, v, True, kv_len)[0],
                                rtol=0, atol=0)
-    grads = flash_attention_bwd(q, k, v, out, lse, go, True, kv_len)
+    assert (out_lo is None) == (dtype == torch.float32)
+    if out_lo is not None:
+        o32 = causal_attention(q.float(), k.float(), v.float(), kv_len=kv_len)
+        err_hi = (out.float() - o32).abs().max()
+        assert (out.float() + out_lo.float() - o32).abs().max() < err_hi / 16
+    grads = flash_attention_bwd(q, k, v, out, lse, go, True, kv_len, out_lo)
     refs = causal_attention_bwd(q, k, v, go, kv_len=kv_len)
     for name, x, r in zip(("dq", "dk", "dv"), grads, refs):
         assert x.dtype == dtype

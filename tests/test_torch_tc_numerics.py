@@ -14,6 +14,14 @@ once to bf16 does not: that is why the kernels carry the split. Kernel C's
 plain version keeps the scaled query in fp32, so C splits q into bf16 hi +
 lo as well; with q rounded once, as B rounds it, a sharp softmax at D = 128
 falls outside C's tolerance.
+
+Kernel A''s bf16 path (``csrc/flash_attention_bwd.cu``) is emulated the
+same way (``emulate_kernel_a_bwd``): bf16 operands, fp32 sums per 64-row
+tile pair in the kernels' walk, P and dS rounded once to bf16 where they
+enter the tensor cores, D = sum(dO * (O_hi + O_lo)) from kernel A's bf16
+output and its rounding residual, each gradient rounded once. It lies
+within ``GRAD_TOL`` of ``causal_attention_bwd``; with D from the bf16 O
+alone (the first design's D) a sharp softmax puts dq outside it.
 """
 
 import numpy as np
@@ -25,7 +33,9 @@ from tts_max_tpu_torch.ops.attention import (
     KERNEL_TOL,
     NEG_INF,
     causal_attention,
+    causal_attention_bwd,
     decode_attention,
+    grad_tol_ratio,
     ragged_decode_attention_plain,
 )
 from tts_max_tpu_torch.ops.paged_attention import paged_decode_attention_xla
@@ -291,3 +301,103 @@ def test_kernel_c_needs_the_q_split():
     ref = ragged_decode_attention_plain(q, k, v, lengths)
     assert _ratio(emulate_contiguous(q, k, v, lengths, q_split=True), ref) <= 1.0
     assert _ratio(emulate_contiguous(q, k, v, lengths, q_split=False), ref) > 1.0
+
+
+# --- kernel A' (attention's backward) on the tensor cores ----------------------
+
+LOG2E = 1.4426950408889634
+
+
+@pytest.fixture
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def emulate_kernel_a_bwd(q, k, v, g, *, kv_len=None, o_residual=True, tile=64):
+    """Kernel A''s bf16 arithmetic: dq, dk, dv (bf16) of causal attention for
+    the cotangent g; q, g [B, S, Hq, D] and k, v [B, S, Hkv, D] in bf16.
+
+    Kernel A's fp32 output O gives the bf16 output O_hi and, with
+    ``o_residual``, its residual O_lo = bf16(O - O_hi); D = sum(dO * (O_hi +
+    O_lo)), or sum(dO * O_hi) without. Rows at or past kv_len are zero, as
+    the kernels' copies fill them. For each (key tile, query tile) pair on or
+    below the diagonal: S and dP as fp32 products of bf16 operands, P =
+    exp2(log2(e) D^-1/2 S - lse) from the base-2 log-sum-exp, dS = P (dP -
+    D); P and dS rounded once to bf16 before dV += P^T dO, dK += dS^T Q and
+    dQ += dS K, summed in fp32; the group's heads summed into dK and dV; each
+    gradient scaled and rounded once."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    n_rep, scale = hq // hkv, d ** -0.5
+    n = s if kv_len is None else kv_len
+    pos = torch.arange(s)
+    live = (pos < n)[:, None]
+    qf, gf = (torch.where(live, x.float().transpose(1, 2), 0.0) for x in (q, g))
+    kf, vf = (torch.where(live, x.float().repeat_interleave(n_rep, 2).transpose(1, 2), 0.0)
+              for x in (k, v))  # [B, Hq, S, D]
+    ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] < n)
+    sc = (qf @ kf.transpose(-1, -2) * scale).masked_fill(~ok, NEG_INF)
+    lse2 = torch.logsumexp(sc, -1) * LOG2E
+    o = torch.softmax(sc, -1) @ vf
+    o_hi = o.bfloat16().float()
+    o_used = o_hi + (o - o_hi).bfloat16().float() if o_residual else o_hi
+    delta = (gf * o_used).sum(-1) * live[:, 0]
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in range(0, n, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        for q0 in range(k0, n, tile):
+            qt, gt = qf[:, :, q0:q0 + tile], gf[:, :, q0:q0 + tile]
+            qp, kp = pos[q0:q0 + tile, None], pos[None, k0:k0 + tile]
+            sc = torch.exp2(qt @ kt.transpose(-1, -2) * (scale * LOG2E)
+                            - lse2[:, :, q0:q0 + tile, None])
+            p = torch.where((kp <= qp) & (qp < n), sc, 0.0)
+            ds = p * (gt @ vt.transpose(-1, -2) - delta[:, :, q0:q0 + tile, None])
+            p, ds = p.bfloat16().float(), ds.bfloat16().float()
+            dv[:, :, k0:k0 + tile] += p.transpose(-1, -2) @ gt
+            dk[:, :, k0:k0 + tile] += ds.transpose(-1, -2) @ qt
+            dq[:, :, q0:q0 + tile] += ds @ kt
+    dk, dv = (x.reshape(b, hkv, n_rep, s, d).sum(2) for x in (dk, dv))
+    return tuple((x * f).transpose(1, 2).to(q.dtype)
+                 for x, f in ((dq, scale), (dk, scale), (dv, 1.0)))
+
+
+def _bwd_inputs(b, s, hq, hkv, d, seed, q_scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = (_bf16(rng, b, s, hq, d).float() * q_scale).bfloat16()
+    k, v = _bf16(rng, b, s, hkv, d), _bf16(rng, b, s, hkv, d)
+    return q, k, v, _bf16(rng, b, s, hq, d)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,kv_len,q_scale", [
+    (2, 256, 4, 1, 64, None, 1.0),     # S a multiple of 64, n_rep 4
+    (1, 200, 4, 4, 64, 150, 1.0),      # S not a multiple of 64, kv_len < S, n_rep 1
+    (1, 130, 8, 2, 64, 97, 1.0),       # partial tiles on both sides of kv_len
+    (1, 192, 4, 1, 128, None, 1.0),    # D = 128
+    (1, 333, 8, 2, 128, 301, 4.0),     # D = 128, sharp, kv_len < S
+])
+def test_kernel_a_bwd_within_grad_tol(one_torch_thread, b, s, hq, hkv, d, kv_len, q_scale):
+    q, k, v, g = _bwd_inputs(b, s, hq, hkv, d, seed=s + d, q_scale=q_scale)
+    ref = causal_attention_bwd(q, k, v, g, kv_len=kv_len)
+    got = emulate_kernel_a_bwd(q, k, v, g, kv_len=kv_len)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(x.float()).all(), name
+        assert grad_tol_ratio(x, r) <= 1.0, (name, grad_tol_ratio(x, r))
+    if kv_len is not None:
+        assert not got[0][:, kv_len:].any() and not got[1][:, kv_len:].any()
+
+
+def test_kernel_a_bwd_needs_the_unrounded_o(one_torch_thread):
+    """A sharp softmax (q x 4) at S = 1024, Hq 8, Hkv 2, D 64: with D from
+    kernel A's bf16 output alone, dq lies outside GRAD_TOL (1.63x here; over
+    seeds 0-5 of this shape 0.90-1.63x, outside at five of six), as the first
+    design computed D; with D from O_hi + O_lo all three grads lie inside
+    (0.44-0.87x over the same seeds). P and dS in bf16 are the same in both."""
+    q, k, v, g = _bwd_inputs(1, 1024, 8, 2, 64, seed=5, q_scale=4.0)
+    ref = causal_attention_bwd(q, k, v, g)
+    got = emulate_kernel_a_bwd(q, k, v, g)
+    assert max(grad_tol_ratio(x, r) for x, r in zip(got, ref)) <= 1.0
+    rounded = emulate_kernel_a_bwd(q, k, v, g, o_residual=False)
+    assert grad_tol_ratio(rounded[0], ref[0]) > 1.0

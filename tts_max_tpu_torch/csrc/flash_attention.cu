@@ -46,8 +46,13 @@
 // tensor-core path works in base 2 already (its running max is scaled by
 // log2(e)), so the value is m + log2(l); the fp32 path converts its natural
 // m + log(l). The backward kernel (flash_attention_bwd.cu) recomputes each
-// probability as exp2(log2(e) * D^-1/2 * q.k - lse). Serving passes null and
-// the kernels run exactly as without it.
+// probability as exp2(log2(e) * D^-1/2 * q.k - lse). With a non-null o_lo
+// (bf16 only) the tensor-core path also writes O's rounding residual,
+// o_lo = bf16(o - bf16(o)) in [B, S, Hq, D]: O_hi + O_lo carries ~16
+// significant bits, so the backward's D = sum(dO * O) is taken from the
+// unrounded O (a bf16 residual moves half the bytes of an fp32 copy of O and
+// leaves the bf16 output as it is). Serving passes null for both and the
+// kernels run exactly as without them.
 //
 // fp32 (flash_fwd_kernel) stays on the CUDA cores: the tensor cores would
 // round fp32 inputs, and the fp32 small-model check runs this path. One
@@ -240,7 +245,8 @@ template <int D>
 __global__ void __launch_bounds__(TC_NT, 1)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-             int S, int Hq, int Hkv, int kv_len, int causal, float scale) {
+             bf16* __restrict__ o_lo, int S, int Hq, int Hkv, int kv_len, int causal,
+             float scale) {
   constexpr int LD = TcConfig<D>::LD;
   constexpr int CH = D / 8;  // 16-byte pieces per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -393,16 +399,25 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[(static_cast<long>(b) * Hq + h) * S + qp] = m[i] + log2f(sum);
     const float inv = 1.f / fmaxf(sum, 1e-30f);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(&ob[qp * q_stride + n * 8 + t4 * 2]) =
-          tc::pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    for (int n = 0; n < D / 8; ++n) {
+      const long idx = (ob - o) + qp * q_stride + n * 8 + t4 * 2;
+      const float x = acc[n][2 * i] * inv, y = acc[n][2 * i + 1] * inv;
+      if (o_lo != nullptr) {  // O = hi + lo: the residual beside the output
+        uint32_t hi, lo;
+        tc::split_bf16(x, y, hi, lo);
+        *reinterpret_cast<uint32_t*>(&o[idx]) = hi;
+        *reinterpret_cast<uint32_t*>(&o_lo[idx]) = lo;
+      } else {
+        *reinterpret_cast<uint32_t*>(&o[idx]) = tc::pack_bf16(x, y);
+      }
+    }
   }
 }
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int B, int S, int Hq, int Hkv, int kv_len, int causal, float scale,
-                      cudaStream_t stream) {
+                      void* o_lo, int B, int S, int Hq, int Hkv, int kv_len, int causal,
+                      float scale, cudaStream_t stream) {
   constexpr int smem = TcConfig<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -410,7 +425,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
   flash_fwd_tc<D><<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, S, Hq, Hkv, kv_len, causal, scale);
+      static_cast<bf16*>(o), lse, static_cast<bf16*>(o_lo), S, Hq, Hkv, kv_len, causal, scale);
   return cudaGetLastError();
 }
 
@@ -418,23 +433,24 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores). The bf16 path
 // needs 16-byte aligned q, k, v (the wrapper checks). lse: null, or fp32
-// [B, Hq, S] for each row's base-2 log-sum-exp. Returns cudaGetLastError()
+// [B, Hq, S] for each row's base-2 log-sum-exp. o_lo: null, or (bf16 only)
+// [B, S, Hq, D] bf16 for O's rounding residual. Returns cudaGetLastError()
 // after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int B, int S, int Hq, int Hkv,
-                                   int D, int kv_len, int causal, float scale, int dtype,
-                                   void* stream) {
+                                   void* o, void* lse, void* o_lo, int B, int S, int Hq,
+                                   int Hkv, int D, int kv_len, int causal, float scale,
+                                   int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (Hkv <= 0 || Hq % Hkv != 0 || kv_len < 1 || kv_len > S)
+  if (Hkv <= 0 || Hq % Hkv != 0 || kv_len < 1 || kv_len > S || (dtype == 0 && o_lo))
     return cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
     return launch_f32<64>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 0 && D == 128)
     return launch_f32<128>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 1 && D == 64)
-    return launch_tc<64>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_tc<64>(q, k, v, o, l, o_lo, B, S, Hq, Hkv, kv_len, causal, scale, st);
   if (dtype == 1 && D == 128)
-    return launch_tc<128>(q, k, v, o, l, B, S, Hq, Hkv, kv_len, causal, scale, st);
+    return launch_tc<128>(q, k, v, o, l, o_lo, B, S, Hq, Hkv, kv_len, causal, scale, st);
   return cudaErrorInvalidValue;
 }

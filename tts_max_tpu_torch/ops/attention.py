@@ -34,11 +34,14 @@ KERNEL_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
 # which is set by the tensor's scale, not by the element; hence the atol
 # relative to max|ref|. In fp32 the kernel recomputes the probabilities from
 # kernel A's log-sum-exp and sums in tiles: rtol 1e-4, atol 1e-5 of the max.
-# In bf16 both versions compute in fp32 and round once (one bf16 ulp, at
-# most 2^-7 |ref|), and the kernel's D = sum(dO * O) reads O as kernel A
-# stored it, rounded to bf16 (2^-9 relative per element), which moves dS by
-# P * dD; that error scales with the tensor, so atol is 2^-8 of the max. A
-# dropped key row (its dk, dv rows zero) or a dropped query row (the last
+# In bf16 both versions round each grad once (one bf16 ulp, at most 2^-7
+# |ref|), and the kernel rounds P and dS once to bf16 where they enter the
+# tensor cores (2^-9 relative per term), which moves a grad element by up
+# to 2^-9 of the sum of its terms' magnitudes; that error scales with the
+# tensor, so atol is 2^-8 of the max. (D = sum(dO * O) must come from the
+# unrounded O: from O rounded to bf16, dS = P (dP - D) cancels into errors
+# beyond this atol under a sharp softmax; tests/test_torch_tc_numerics.py.)
+# A dropped key row (its dk, dv rows zero) or a dropped query row (the last
 # key's dv is that row's alone) moves an element by about its own size.
 GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2.0 ** -7, 2.0 ** -8)}
 

@@ -8,14 +8,13 @@ Pallas dq/dkv kernels of the bundled TPU flash attention
 (``tts_max_tpu/ops/attention.py``, ``_tpu_flash_causal``).
 
 ``flash_attention`` is a ``torch.autograd.Function`` on every device. On a
-CUDA tensor its forward launches kernel A, with a per-row log-sum-exp when
-an input needs a gradient, and its backward launches A'. On a CPU tensor it
-runs the plain versions, ``ops.attention.causal_attention`` and
-``causal_attention_bwd``, which have the kernels' arithmetic. There is no
-fallback from one to the other: a CUDA input a kernel does not take raises.
-bf16 inputs run kernel A on the tensor cores (``mma.sync``, ``cp.async``),
-fp32 inputs on the CUDA cores; A' computes in fp32 on the CUDA cores for
-both.
+CUDA tensor its forward launches kernel A, with a per-row log-sum-exp (and,
+in bf16, O's rounding residual) when an input needs a gradient, and its
+backward launches A'. On a CPU tensor it runs the plain versions,
+``ops.attention.causal_attention`` and ``causal_attention_bwd``, which have
+the kernels' arithmetic. There is no fallback from one to the other: a CUDA
+input a kernel does not take raises. bf16 inputs run both kernels on the
+tensor cores (``mma.sync``, ``cp.async``), fp32 inputs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -62,37 +61,44 @@ def _check_cuda(*xs):
 
 def flash_attention_fwd(q, k, v, causal: bool = True, kv_len: int | None = None,
                         with_lse: bool = False):
-    """Kernel A on CUDA tensors: (out [B, S, Hq, D] in q's dtype, lse or
-    None). With ``with_lse`` it also writes each row's log-sum-exp of the
-    scaled scores, fp32 [B, Hq, S], in base 2: log2(sum_k 2^(log2(e) * q.k
-    * D^-1/2)), natural log-sum-exp times log2(e). No autograd."""
+    """Kernel A on CUDA tensors: (out [B, S, Hq, D] in q's dtype, lse,
+    out_lo), the last two None unless ``with_lse``. Then it also writes each
+    row's log-sum-exp of the scaled scores, fp32 [B, Hq, S], in base 2:
+    log2(sum_k 2^(log2(e) * q.k * D^-1/2)), natural log-sum-exp times
+    log2(e); and for bf16 O's rounding residual out_lo = bf16(o - out) of
+    the fp32 output o, [B, S, Hq, D] bf16 (None for fp32), so that out +
+    out_lo carries ~16 significant bits for the backward's D = sum(dO * O).
+    No autograd."""
     kv_len = _check(q, k, v, kv_len)
     _check_cuda(q, k, v)
     b, s, hq, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty(b, hq, s, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    out_lo = torch.empty_like(q) if with_lse and q.dtype == torch.bfloat16 else None
     lib = _lib("flash_attention")
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
+        None if out_lo is None else out_lo.data_ptr(),
         b, s, hq, k.shape[2], d, kv_len, int(causal), d ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
-    return out, lse
+    return out, lse, out_lo
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True,
-                        kv_len: int | None = None):
+                        kv_len: int | None = None, out_lo=None):
     """dq, dk, dv (each in q's dtype) of ``flash_attention`` for the output
     cotangent g, under the ``kv_len`` rule of ``causal_attention_bwd``.
 
     On CUDA tensors it launches kernel A' (causal only), which reads kernel
-    A's output and base-2 log-sum-exp (``flash_attention_fwd(...,
+    A's output, base-2 log-sum-exp and, for bf16, the output's rounding
+    residual ``out_lo`` (all three from ``flash_attention_fwd(...,
     with_lse=True)``); on CPU tensors it runs the plain backward, which
-    needs neither."""
+    needs none of them."""
     kv_len = _check(q, k, v, kv_len)
     if q.device.type == "cpu":
         return plain_bwd(q, k, v, g, causal=causal, kv_len=kv_len)
@@ -104,11 +110,19 @@ def flash_attention_bwd(q, k, v, out, lse, g, causal: bool = True,
     if lse is None or lse.shape != (b, hq, s) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("lse must be kernel A's fp32 [B, Hq, S] log-sum-exp")
+    if (out_lo is not None) != (q.dtype == torch.bfloat16):
+        raise ValueError("out_lo: kernel A's bf16 residual of the output for bf16 "
+                         "inputs, None for fp32")
+    if out_lo is not None:
+        if out_lo.shape != q.shape:
+            raise ValueError(f"out_lo shape {tuple(out_lo.shape)} is not q's")
+        _check_cuda(q, out_lo)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, hq, s, dtype=torch.float32, device=q.device)
     lib = _lib("flash_attention_bwd")
     err = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if out_lo is None else out_lo.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, s, hq, k.shape[2], d, kv_len, d ** -0.5, _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -128,19 +142,20 @@ class _FlashAttention(torch.autograd.Function):
         need_grad = any(ctx.needs_input_grad[:3])
         if need_grad and not causal:
             raise ValueError("the backward kernel takes causal attention only")
-        out, lse = flash_attention_fwd(q, k, v, causal, kv_len, with_lse=need_grad)
+        out, lse, out_lo = flash_attention_fwd(q, k, v, causal, kv_len, with_lse=need_grad)
         if need_grad:
-            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.save_for_backward(q, k, v, out, lse, out_lo)
         return out
 
     @staticmethod
     def backward(ctx, g):
         if g.device.type == "cpu":
             q, k, v = ctx.saved_tensors
-            out = lse = None
+            out = lse = out_lo = None
         else:
-            q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal, ctx.kv_len)
+            q, k, v, out, lse, out_lo = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal, ctx.kv_len,
+                                         out_lo)
         return dq, dk, dv, None, None
 
 
@@ -169,9 +184,9 @@ flash_attention_bwd.launches = 0
 
 
 _ARGTYPES = {
-    "flash_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    "flash_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    "flash_attention_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
 }
 
