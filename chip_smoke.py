@@ -10,7 +10,8 @@ printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``):
 kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
 1 and 8, kv_len < S, n_rep 1 and 8), kernel A' (attention's backward, for
 training: SFT's layer at batch 4 x 2048, fp32, D = 128, a tail, kv_len < S,
-n_rep 1, a sharp softmax, a ragged S = 130, batch 8, beside SDPA's backward;
+n_rep 1, a sharp softmax, a ragged S = 130, batch 8 and draft distillation's
+layer at batch 8 x 512, beside SDPA's backward;
 its library's SASS must hold tensor-core and cp.async instructions; and A
 with its log-sum-exp and residual writes beside A without them), kernel B
 (contiguous decode), kernel C (ragged decode,
@@ -49,8 +50,23 @@ plain ``generate``), and the three serving CLIs (``tts_max_tpu_torch/tools``:
 single shot, a JSONL batch, the HTTP server with a streamed request) on an
 HF directory of the main path's weights that the port's writer stores in
 BF16, then the batch CLI with ``--quantize int4-g128`` on it and the single
-shot on a pre-quantized int8 dir of the same weights. Launch counters, set to 0 before each path and read after it, must
-equal what that path's requests and the engines' own counts imply.
+shot on a pre-quantized int8 dir of the same weights. The tools from training
+to serving run at the same width: v1 writes 40 samples with
+``example/make_synthetic_samples.py`` and vectorizes them
+(``tools.data_vectorizer``, the full-width seeded encoder at batch 8, kernel
+G; ``tools.data_merger``); c1 converts the SFT's final model with a seeded
+LoRA adapter into an HF dir and a pre-quantized int8 dir
+(``tools.convert_checkpoint``) and serves 128 tokens from each; d1 distills
+a 4-layer draft from that dir on v1's dataset (``tools.distill_draft``, batch
+8 x 512, kernels A and A'), and sp3 decodes speculatively with both read
+from their dirs; l1 takes one LoRA forward and backward at batch 2 x 2048;
+q1 writes seeded full-width codec checkpoints, with which the SFT's
+one-step resume through ``training.main`` runs prompt-continuation quality
+validation, then runs the random-phrases validator on the trained weights;
+qq measures quantization quality
+(``tools.quant_quality``, int8 and int4-g128, kernel Q). Launch counters,
+set to 0 before each path and read after it, must equal what that path's
+requests and the engines' own counts imply.
 The next-to-last lines are a JSON summary of the kernels and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run ends with a nonzero exit and no result
@@ -60,6 +76,7 @@ line. Without a CUDA card it exits 1 at once. It imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import heapq
 import json
@@ -317,7 +334,8 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
     """Kernel A against its plain version and beside SDPA: the main path's
     prefill (request (c)'s bucket), an engine group prefill of 8 such
     prompts, S = 137 and 2048, D = 128, fp32 (the CUDA-core path), n_rep 1
-    and 8, and kv_len < S causal and not."""
+    and 8, kv_len < S causal and not, and the layers of draft distillation
+    (d1) and of the LoRA step (l1)."""
     from tts_max_tpu_torch.ops import attention
     from tts_max_tpu_torch.ops.flash_attention import flash_attention
 
@@ -336,6 +354,9 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
         ("kv_len<S causal", 1, main_s, 32, 8, 64, bf, True, main_s - 231),
         ("n_rep 1", 1, 1024, 32, 32, 64, bf, True, None),
         ("n_rep 8", 1, 1024, 64, 8, 64, bf, True, None),
+        # draft distillation's target: A without the training outputs
+        ("distill B=8 S=512", 8, 512, 32, 8, 64, bf, True, None),
+        ("LoRA B=2 S=2048", 2, 2048, 32, 8, 64, bf, True, None),  # l1's layer
         ("main", 1, main_s, 32, 8, 64, bf, True, None),
     ]
     worst, main = 0.0, None
@@ -388,7 +409,8 @@ def attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None) -> tuple[float,
 # SFT's layer (Llama-3.2-1B at batch 4 x 2048) first, then fp32, Llama-3.1-8B's
 # head_dim, a tail, kv_len < S, n_rep 1, a sharp softmax (q x 4: D from the
 # bf16-rounded O alone puts dq and dk outside GRAD_TOL there), a small ragged
-# case (partial tiles in both kernels) and batch 8
+# case (partial tiles in both kernels), batch 8, draft distillation's layer and
+# the LoRA step's (l1)
 BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len, q_scale)
     ("main", 4, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),
     ("fp32 S=1024", 1, 1024, 32, 8, 64, torch.float32, None, 1.0),
@@ -399,6 +421,8 @@ BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len, q_scale)
     ("sharp q*4", 1, 1024, 32, 8, 64, torch.bfloat16, None, 4.0),
     ("ragged S=130", 2, 130, 32, 8, 64, torch.bfloat16, 97, 1.0),
     ("B=8 S=1024", 8, 1024, 32, 8, 64, torch.bfloat16, None, 1.0),
+    ("distill B=8 S=512", 8, 512, 32, 8, 64, torch.bfloat16, None, 1.0),
+    ("LoRA B=2 S=2048", 2, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),
 ]
 
 
@@ -803,6 +827,19 @@ def check_paged(timer: Timer) -> dict:
 ENCODER_SHAPES = [("block 1", 352320, 48, 7), ("block 2", 176160, 96, 7),
                   ("block 3", 88080, 192, 7), ("block 4", 22020, 384, 7),
                   ("block 5", 5505, 768, 7), ("final", 1101, 1536, 1)]
+# v1's batches: data_vectorizer at batch 8 on V1_SAMPLES samples of 0.5-3 s
+# (example/make_synthetic_samples.py) pads each batch to the 3 s bucket plus a
+# hop; the train split runs batches of 8 and one of 7, the val split one of 1
+V1_SAMPLES, V1_T, V1_BATCHES = 40, 48000 + 320, (8, 7, 1)
+
+
+def encoder_shapes(t0: int) -> list:
+    """ENCODER_SHAPES for an input of ``t0`` samples (hop padding included):
+    each block's T divided as the 22 s prompt's is."""
+    top = ENCODER_SHAPES[0][1]
+    return [(label, t0 // (top // t), c, n) for label, t, c, n in ENCODER_SHAPES]
+
+
 ACT1D_FLOPS = 53  # per element: two 6-tap sums (22), two snakes (8), the 12-tap down sum (23)
 SINE_FLOPS = 20  # an estimate for one sinf: range reduction and polynomial
 
@@ -866,6 +903,11 @@ def check_kernel_g(timer: Timer) -> dict:
     for label, (x, p) in edge:
         err, tol, same = check(label, x, p)
         log(f"  edge case {label}: max_abs_err={err:.3e} ({tol}), bitwise {same}")
+    for b in V1_BATCHES:  # every shape v1 runs G at (run_vectorize checks that)
+        for label, t, c, _ in encoder_shapes(V1_T):
+            err, tol, same = check(f"v1 {label} B={b}", *inputs(b, t, c))
+            log(f"  v1 {label:7s} [{b}, {t:5d}, {c:4d}]: max_abs_err={err:.3e} ({tol}), "
+                f"bitwise {same}")
     rule = act1d.launch_rows
     try:  # every compiled R, forced in place of the rule's choice
         for r in act1d.STRIP_ROWS:
@@ -1254,15 +1296,20 @@ def write_sft_config(train_dir: str) -> tuple[str, dict, dict, str]:
     return path, cfg, changes, data
 
 
-def run_training(counters) -> dict:
+def run_training(counters, validation) -> dict:
     """SFT at the full width of Llama-3.2-1B through the entry point users
     run, ``python -m tts_max_tpu_torch.training.main --config_path ...``
     (called in-process), on ``example/configs/sft.json`` with only the
     dataset paths, the output dir, the checkpoints kept and the step count
-    changed; then a one-step resume from its checkpoint. Returns the launch
-    counts of both runs."""
+    changed; then a one-step resume from its checkpoint that runs
+    prompt-continuation quality validation after its checkpoint
+    (``save_steps`` 1) with ``validation`` (q1: decoder and encoder
+    checkpoint paths and a prompt wav), which must write
+    ``continuations/9/continuation_0.wav``, finite. Returns the launch counts of both runs; the output stays under
+    ``TRAIN_DIR`` for c1."""
     import shutil
 
+    from tts_max_tpu_torch.inference import quality
     from tts_max_tpu_torch.models import llama
     from tts_max_tpu_torch.training import main as train_main
 
@@ -1282,8 +1329,7 @@ def run_training(counters) -> dict:
         f"--total_steps {TRAIN_STEPS}; free disk "
         f"{shutil.disk_usage(TRAIN_DIR).free / 2**30:.1f} GiB")
 
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS)])
@@ -1295,7 +1341,7 @@ def run_training(counters) -> dict:
             and losses[-1] < losses[0]):
         raise AssertionError(f"SFT losses {losses}")
     eval_batches = 4 // cfg["training"]["batch_size"]  # at step 0 only (eval_steps 300)
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     # remat: each layer's forward runs twice a step (with the log-sum-exp), once
     # an eval batch (without); its backward once a step
     want.update(flash_attention=L * (2 * TRAIN_STEPS + eval_batches),
@@ -1325,11 +1371,18 @@ def run_training(counters) -> dict:
     del res
 
     cfg["checkpointing"]["only_load_model_weights"] = False
+    dec_path, enc_path, wav_path = validation
+    cfg["checkpointing"].update(validation_type="prompt_continuation", save_steps=1)
+    argv = ["--config_path", path, "--total_steps", str(TRAIN_STEPS + 1),
+            "--codec_decoder_checkpoint", dec_path, "--codec_encoder_checkpoint", enc_path,
+            "--validation_prompt_wavs", f"{wav_path}:{REQUESTS[1][2]}"]
     with open(path, "w") as f:
         json.dump(cfg, f)
-    for c in counters:
-        c.launches = 0
-    res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS + 1)])
+    _zero(counters)
+    t0 = time.perf_counter()
+    with _WavRecorder(quality) as rec:
+        res = train_main.main(argv)
+    resume_s = time.perf_counter() - t0
     got2 = _counts(counters)
     if not ([s for s, _, _, _ in res.steps] == [TRAIN_STEPS + 1]
             and res.statistics.step == TRAIN_STEPS + 1 and np.isfinite(res.steps[0][1].loss)
@@ -1338,13 +1391,22 @@ def run_training(counters) -> dict:
             and not os.path.exists(os.path.join(out, "checkpoints", str(TRAIN_STEPS)))):
         raise AssertionError(f"SFT resume: steps {[s for s, _, _, _ in res.steps]}, "
                              f"statistics at {res.statistics.step}")
-    want2 = {c.__name__: 0 for c in counters}
-    want2.update(flash_attention=2 * L, flash_attention_bwd=L)
-    _check_counts("SFT resume", got2, want2)
+    # the step (A twice a layer with remat, A' once), then the continuation: the
+    # prompt's encode (G), its prefill (A) and 1-256 decode steps (B)
+    steps = got2["flash_decode_attention"] // L
+    _check_counts("SFT resume", got2, _want(
+        counters, flash_attention=3 * L, flash_attention_bwd=L,
+        flash_decode_attention=L * steps, activation1d_kernel=G_PER_ENCODE))
+    wav = os.path.join(out, "continuations", str(TRAIN_STEPS + 1), "continuation_0.wav")
+    _check_wavs("q1 continuation", rec, [wav])
+    if not 1 <= steps <= 256:
+        raise AssertionError(f"q1: the continuation took {steps} decode steps")
     log(f"  SFT resume (only_load_model_weights true -> false): step {TRAIN_STEPS + 1} from "
         f"the step-{TRAIN_STEPS} checkpoint, loss {res.steps[0][1].loss:.4f}, checkpoint "
-        f"{res.checkpoint_seconds[-1]:.2f} s; launches {got2}")
-    shutil.rmtree(TRAIN_DIR)
+        f"{res.checkpoint_seconds[-1]:.2f} s, wall {resume_s:.1f} s; q1 prompt-continuation "
+        f"validation (save_steps 1, the 5 s prompt): {steps} tokens, "
+        f"{_check_wav_file('q1', wav) / 16000:.2f} s of audio written finite; "
+        f"launches {got2}")
     return {k: got[k] + got2[k] for k in got}
 
 
@@ -1458,6 +1520,142 @@ def _numpy_tree(t):
     if isinstance(t, list):
         return [_numpy_tree(v) for v in t]
     return t.numpy()
+
+
+# --- seeded codec checkpoints (the inverse of models/codec/torch_import.py) -------
+
+
+def _cpu(t) -> torch.Tensor:
+    return t.detach().cpu().contiguous()
+
+
+def _linear_sd(p, base: str) -> dict:
+    """{"kernel": [in, out], "bias"?} -> a torch Linear's [out, in] weight."""
+    sd = {f"{base}.weight": _cpu(p["kernel"].T)}
+    if "bias" in p:
+        sd[f"{base}.bias"] = _cpu(p["bias"])
+    return sd
+
+
+def _conv_sd(p, base: str) -> dict:
+    """{"kernel": [K, Cin, Cout], "bias"?} -> a torch Conv1d's [Cout, Cin, K]."""
+    sd = {f"{base}.weight": _cpu(p["kernel"].permute(2, 1, 0))}
+    if "bias" in p:
+        sd[f"{base}.bias"] = _cpu(p["bias"])
+    return sd
+
+
+def _norm_sd(p, base: str) -> dict:
+    return {f"{base}.weight": _cpu(p["scale"]), f"{base}.bias": _cpu(p["bias"])}
+
+
+def _snake_sd(p, base: str) -> dict:
+    return {f"{base}.act.alpha": _cpu(p["alpha"]), f"{base}.act.beta": _cpu(p["beta"])}
+
+
+def _resnet_sd(p, base: str) -> dict:
+    sd = {**_norm_sd(p["norm1"], f"{base}.norm1"), **_conv_sd(p["conv1"], f"{base}.conv1"),
+          **_norm_sd(p["norm2"], f"{base}.norm2"), **_conv_sd(p["conv2"], f"{base}.conv2")}
+    if "nin_shortcut" in p:
+        sd.update(_conv_sd(p["nin_shortcut"], f"{base}.nin_shortcut"))
+    return sd
+
+
+def decoder_state_dict(dec, project_in) -> dict:
+    """The xcodec2 state dict that ``torch_import.import_decoder`` reads as
+    the port's decoder parameters ``dec`` (no upsampler); ``project_in`` (the
+    encoder's FSQ input projection, which the decoder does not use) fills the
+    quantizer's other half."""
+    bb = dec["backbone"]
+    sd = {**_linear_sd(project_in, "generator.quantizer.project_in"),
+          **_linear_sd(dec["quantizer"]["project_out"], "generator.quantizer.project_out"),
+          **_linear_sd(dec["fc_post_a"], "fc_post_a"),
+          **_conv_sd(bb["embed"], "generator.backbone.embed"),
+          **_norm_sd(bb["final_norm"], "generator.backbone.final_layer_norm"),
+          **_linear_sd(dec["head"]["out"], "generator.head.out")}
+    for i in range(2):
+        sd.update(_resnet_sd(bb["prior"][i], f"generator.backbone.prior_net.{i}"))
+        sd.update(_resnet_sd(bb["post"][i], f"generator.backbone.post_net.{i}"))
+    blocks = bb["blocks"]
+    for i in range(blocks["att_norm"]["scale"].shape[0]):
+        base = f"generator.backbone.transformers.{i}"
+        sd[f"{base}.att_norm.weight"] = _cpu(blocks["att_norm"]["scale"][i])
+        sd[f"{base}.ffn_norm.weight"] = _cpu(blocks["ffn_norm"]["scale"][i])
+        for name, p in (("att.c_attn", blocks["att"]["c_attn"]),
+                        ("att.c_proj", blocks["att"]["c_proj"]),
+                        ("mlp.fc1", blocks["mlp"]["fc1"]), ("mlp.fc2", blocks["mlp"]["fc2"])):
+            sd[f"{base}.{name}.weight"] = _cpu(p["kernel"][i].T)
+    return sd
+
+
+def encoder_state_dict(enc) -> dict:
+    """The xcodec2 state dict that ``torch_import.import_encoder`` reads as
+    the port's encoder parameters ``enc``."""
+    ac, se = enc["acoustic"], enc["semantic"]
+    sd = {**_conv_sd(ac["initial"], "CodecEnc.conv_blocks.0"),
+          **_snake_sd(ac["final_act"], "CodecEnc.conv_final_block.0"),
+          **_conv_sd(ac["final"], "CodecEnc.conv_final_block.1"),
+          **_conv_sd(se["initial"], "SemanticEncoder_module.initial_conv"),
+          **_conv_sd(se["res1"], "SemanticEncoder_module.residual_blocks.1"),
+          **_conv_sd(se["res2"], "SemanticEncoder_module.residual_blocks.3"),
+          **_conv_sd(se["final"], "SemanticEncoder_module.final_conv"),
+          **_linear_sd(enc["fusion"], "fc_prior"),
+          **_linear_sd(enc["quantizer"]["project_in"], "generator.quantizer.project_in"),
+          **_linear_sd(enc["quantizer"]["project_out"], "generator.quantizer.project_out")}
+    for b, blk in enumerate(ac["blocks"]):
+        base = f"CodecEnc.conv_blocks.{b + 1}.block"
+        for u, unit in enumerate(blk["units"]):
+            sd.update(_snake_sd(unit["act1"], f"{base}.{u}.block.0"))
+            sd.update(_conv_sd(unit["conv1"], f"{base}.{u}.block.1"))
+            sd.update(_snake_sd(unit["act2"], f"{base}.{u}.block.2"))
+            sd.update(_conv_sd(unit["conv2"], f"{base}.{u}.block.3"))
+        n = len(blk["units"])
+        sd.update(_snake_sd(blk["act"], f"{base}.{n}"))
+        sd.update(_conv_sd(blk["down"], f"{base}.{n + 1}"))
+    return sd
+
+
+def w2vbert_state_dict(w2v) -> dict:
+    """The HF ``Wav2Vec2BertModel`` state dict that
+    ``w2vbert.import_hf_state_dict`` reads as the port's parameters ``w2v``
+    (every stacked layer)."""
+    lyr, fp = w2v["layers"], w2v["feature_projection"]
+    sd = {**_norm_sd(fp["layer_norm"], "feature_projection.layer_norm"),
+          **_linear_sd(fp["projection"], "feature_projection.projection")}
+
+    def layer(tree, i):
+        return {k: layer(v, i) for k, v in tree.items()} if isinstance(tree, dict) else tree[i]
+
+    for i in range(lyr["attn"]["q"]["kernel"].shape[0]):
+        p, base = layer(lyr, i), f"encoder.layers.{i}"
+        for ln, name in (("ffn1_ln", "ffn1_layer_norm"), ("attn_ln", "self_attn_layer_norm"),
+                         ("conv_ln", "conv_module.layer_norm"), ("ffn2_ln", "ffn2_layer_norm"),
+                         ("final_ln", "final_layer_norm")):
+            sd.update(_norm_sd(p[ln], f"{base}.{name}"))
+        for f in ("ffn1", "ffn2"):
+            sd.update(_linear_sd(p[f]["intermediate"], f"{base}.{f}.intermediate_dense"))
+            sd.update(_linear_sd(p[f]["output"], f"{base}.{f}.output_dense"))
+        for k in ("q", "k", "v", "out"):
+            sd.update(_linear_sd(p["attn"][k], f"{base}.self_attn.linear_{k}"))
+        sd[f"{base}.self_attn.distance_embedding.weight"] = _cpu(p["attn"]["distance_embedding"])
+        sd.update(_norm_sd(p["conv"]["dw_ln"], f"{base}.conv_module.depthwise_layer_norm"))
+        for k, name in (("pw1", "pointwise_conv1"), ("dw", "depthwise_conv"),
+                        ("pw2", "pointwise_conv2")):
+            sd.update(_conv_sd(p["conv"][k], f"{base}.conv_module.{name}"))
+    return sd
+
+
+def write_codec_checkpoints(directory: str, dec, enc, w2v) -> tuple[str, str]:
+    """Torch files of seeded codec weights in the layouts the port's
+    importers read: ``decoder.pt`` (xcodec2's decoder half) and
+    ``encoder.pt`` (the encoder half with the w2v-bert state dict beside it,
+    as one xcodec2 checkpoint carries both). Returns both paths."""
+    os.makedirs(directory, exist_ok=True)
+    dec_path = os.path.join(directory, "decoder.pt")
+    enc_path = os.path.join(directory, "encoder.pt")
+    torch.save(decoder_state_dict(dec, enc["quantizer"]["project_in"]), dec_path)
+    torch.save({**encoder_state_dict(enc), **w2vbert_state_dict(w2v)}, enc_path)
+    return dec_path, enc_path
 
 
 # --- the main path --------------------------------------------------------------
@@ -1595,8 +1793,7 @@ def run_main_path(tok, sv, counters):
     model, params, cfg, codec = build_main_path(tok, sv)
     settings = InferenceSettings(max_tokens=256)
 
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     steps = 0
     prefills = 0
     for request in REQUESTS:
@@ -1648,11 +1845,11 @@ def run_main_path(tok, sv, counters):
         f"{1e3 * res.decode_time / res.steps:.3f} ms/step")
 
     encoded = len({r[1] for r in REQUESTS if r[1] in PROMPT_SECONDS})
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want.update(flash_attention=cfg.n_layers * prefills,
                 flash_decode_attention=cfg.n_layers * steps,
                 activation1d_kernel=G_PER_ENCODE * encoded)
-    got = {c.__name__: c.launches for c in counters}
+    got = _counts(counters)
     log(f"launch counts over the synthesis path: {got} (expected {want}: "
         f"{encoded} prompts encoded)")
     if got != want:
@@ -1700,6 +1897,36 @@ def engine_prompt(tok, normalizer, encoder, kind: str, i: int):
             np.asarray(codes, np.int64))
 
 
+@contextlib.contextmanager
+def flag_syncs():
+    """Yields a list that gets the Python stack of every host sync
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags inside the block."""
+    syncs = []
+
+    def on_warning(message, *args, **kw):
+        if "synchroniz" in str(message):
+            syncs.append([f for f in traceback.extract_stack()[:-1]
+                          if not f.filename.endswith("warnings.py")])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            # the first switch into "warn" in a process flags itself
+            syncs[:] = [st for st in syncs if st[-1].name != "set_sync_debug_mode"]
+
+
+def _sync_sites(syncs) -> collections.Counter:
+    """The innermost four frames of each flagged sync, counted."""
+    return collections.Counter(
+        " < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                   for f in reversed(stack[-4:])) for stack in syncs)
+
+
 def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
                  cancel: int | None = None, report: dict | None = None) -> dict:
     """Warm ``eng`` up, set the counters to 0, submit ``reqs`` (dicts: ids,
@@ -1715,47 +1942,33 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
     lo, size = sv.generation_window()
     buckets = tuple(sorted({-(-len(r["ids"]) // 64) * 64 for r in reqs}))
     eng.warmup(prompt_buckets=buckets)
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     rids = [eng.submit(r["ids"], r["budget"], sv.speech_end_id, sampling_seed=r["seed"],
                        sampling=r.get("sampling"), min_tokens=r.get("min_tokens", 0))
             for r in reqs]
     done, t_first, cancelled = {}, None, None
-    syncs = []  # the Python stack of every sync the debug mode flags
-
-    def on_warning(message, *args, **kw):
-        if "synchroniz" in str(message):
-            syncs.append([f for f in traceback.extract_stack()[:-1]
-                          if not f.filename.endswith("warnings.py")])
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for batch in eng.run_iter():
-                if t_first is None:
-                    t_first = time.perf_counter()
-                    if cancel is not None:
-                        cancelled = rids[cancel]
-                        if eng.cancel(cancelled) is not True:
-                            raise AssertionError(f"{label}: cancel returned False")
-                done.update((c.request_id, c) for c in batch)
-                blocks = getattr(eng, "_slot_blocks", [])
-                if any(0 in row for row in blocks):
-                    raise AssertionError(f"{label}: the sink block was allocated")
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    with flag_syncs() as syncs:
+        for batch in eng.run_iter():
+            if t_first is None:
+                t_first = time.perf_counter()
+                if cancel is not None:
+                    cancelled = rids[cancel]
+                    if eng.cancel(cancelled) is not True:
+                        raise AssertionError(f"{label}: cancel returned False")
+            done.update((c.request_id, c) for c in batch)
+            blocks = getattr(eng, "_slot_blocks", [])
+            if any(0 in row for row in blocks):
+                raise AssertionError(f"{label}: the sink block was allocated")
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    got = {c.__name__: c.launches for c in counters}
+    got = _counts(counters)
 
     stats = eng.stats()
     dispatches = sum(stats["dispatches_per_stage"].values())
     steps = dispatches * eng.steps_per_dispatch
     n_layers = eng.cfg.n_layers
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want["flash_attention"] = n_layers * (eng._prefill_groups + eng._park_groups)
     want[decode_kernel] = n_layers * steps
     log(f"  {label}: launch counts {got} (expected {want}: {eng._prefill_groups} group "
@@ -1763,11 +1976,7 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
         f"admissions, {dispatches} dispatches x K={eng.steps_per_dispatch})")
     if got != want:
         raise AssertionError(f"{label}: launch counts {got} != expected {want}")
-    # the first switch into "warn" in a process flags itself; it is not the engine's
-    syncs = [stack for stack in syncs if stack[-1].name != "set_sync_debug_mode"]
-    where = collections.Counter(
-        " < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
-                   for f in reversed(stack[-4:])) for stack in syncs)
+    where = _sync_sites(syncs)
     log(f"  {label}: host syncs flagged by torch.cuda.set_sync_debug_mode inside the run: "
         f"{len(syncs)}; one blob event wait per dispatch ({dispatches})")
     if syncs:
@@ -1952,13 +2161,14 @@ def _check_parked(label, eng) -> None:
 # --- speculative decoding at full width -----------------------------------------
 
 
-def run_speculative(tok, sv, params, cfg, encoder, counters) -> dict:
+def run_speculative(tok, sv, params, cfg, encoder, counters, sp3) -> dict:
     """sp1: fp32 Llama-3.2-1B as both draft and target (TF32 off), batch 2 on
     request (b)'s prompt, 64 tokens, gamma 4, greedy: the ids of fp32 greedy
     ``generate``, every candidate accepted. sp2: bf16, a 2-layer draft of the
     1B widths (seed 1) for the 1B target, batch 4 (the voice descriptions),
     128 tokens, gamma 4, temperature 0.9, top-k 50, beside plain ``generate``
-    at the same batch and budget. Returns the launch counts of both."""
+    at the same batch and budget, and logged beside ``sp3`` (``run_sp3``'s
+    numbers for the distilled draft). Returns the launch counts of both."""
     import dataclasses
 
     from tts_max_tpu_torch.data import normalization
@@ -1971,15 +2181,14 @@ def run_speculative(tok, sv, params, cfg, encoder, counters) -> dict:
     lo, size = window
     gamma, n_layers = 4, cfg.n_layers
     normalizer = normalization.create()
-    totals = {c.__name__: 0 for c in counters}
+    totals = _want(counters)
 
     def count(want, label):
         got = _counts(counters)
-        _check_counts(label, got, {**{c.__name__: 0 for c in counters}, **want})
+        _check_counts(label, got, _want(counters, **want))
         for k, v in got.items():
             totals[k] += v
-        for c in counters:
-            c.launches = 0
+        _zero(counters)
 
     # sp1
     ids = engine_prompt(tok, normalizer, encoder, "p5s", 0)[0]
@@ -1988,8 +2197,7 @@ def run_speculative(tok, sv, params, cfg, encoder, counters) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = llama._map(lambda t: t.float() if t.is_floating_point() else t, params)
     greedy = SamplingParams(temperature=0.0)
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     res = speculative_generate(params32, cfg32, params32, cfg32, prompt, lens, None, sp=greedy,
                                max_new_tokens=64, eos_id=-1, gamma=gamma, vocab_window=window)
     count({"flash_attention": 2 * n_layers,
@@ -2054,6 +2262,11 @@ def run_speculative(tok, sv, params, cfg, encoder, counters) -> dict:
         f"generate: {ref.steps} steps, "
         f"{int(ref.num_generated.sum()) / ref.decode_time:.1f} tok/s "
         f"({1e3 * ref.decode_time:.1f} ms); verify logits finite in every round")
+    log(f"  sp3 beside sp2 (same batch and budget): distilled {D1_LAYERS}-layer draft "
+        f"{sp3['per_round']:.3f} tokens per round a row, {sp3['tok_s']:.1f} tok/s; "
+        f"random 2-layer draft {per_round:.3f}, "
+        f"{int(n_gen.sum()) / res.decode_time:.1f} tok/s; generate "
+        f"{int(ref.num_generated.sum()) / ref.decode_time:.1f} tok/s")
     return totals
 
 
@@ -2063,8 +2276,18 @@ SERVING_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", 
 BATCH_BUDGETS = [128, 256, 160, 224, 192, 256, 144, 208]
 
 
+def _zero(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
 def _counts(counters) -> dict:
     return {c.__name__: c.launches for c in counters}
+
+
+def _want(counters, **kw) -> dict:
+    """Every counter at 0 but those named in ``kw``."""
+    return {**{c.__name__: 0 for c in counters}, **kw}
 
 
 def _check_counts(label, got, want) -> None:
@@ -2121,8 +2344,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
             totals[k] = totals.get(k, 0) + v
 
     # 1. single shot: one request on the 5 s prompt wav, 128 tokens
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     out = os.path.join(SERVING_DIR, "single.wav")
     rep = serving_inference.main([
         "--model_dir", model_dir, "--text", TEXT, "--output", out,
@@ -2130,7 +2352,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
         "--max_tokens", "128"])
     res = rep["result"]
     got = _counts(counters)
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want.update(flash_attention=n_layers, flash_decode_attention=n_layers * res.decode_steps,
                 activation1d_kernel=G_PER_ENCODE)
     _check_counts("serving_inference", got, want)
@@ -2155,8 +2377,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
                 req = dict(text=TEXT, prompt_wav=wavs[pid],
                            prompt_transcript={"p5s": REQUESTS[1][2], "p22s": REQUESTS[2][2]}[pid])
             f.write(json.dumps(dict(req, max_tokens=budget)) + "\n")
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     rep = serve_batch.main(["--model_dir", model_dir, "--requests", reqs_path,
                             "--out_dir", os.path.join(SERVING_DIR, "batch"),
                             "--max_batch", "8", "--max_len", "2048", "--max_tokens", "256"])
@@ -2164,7 +2385,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     eng = rep["engine"]
     steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
     warm_buckets = 2  # warmup(): one prefill per prompt bucket (64, 256), one decode step
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want.update(flash_attention=n_layers * (eng._prefill_groups + warm_buckets),
                 ragged_decode_attention=n_layers * (steps + 1),
                 activation1d_kernel=G_PER_ENCODE * len(PROMPT_SECONDS))
@@ -2185,8 +2406,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
 
     # 3. HTTP: a TtsServer on an ephemeral port; one request whole, the same
     # request (same seed) streamed, then /stats
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     server = serve_http.build_server(serve_http.parse_args(
         ["--model_dir", model_dir, "--max_batch", "8", "--max_len", "2048",
@@ -2229,7 +2449,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     got = _counts(counters)
     eng = server.engine
     steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want.update(flash_attention=n_layers * (eng._prefill_groups + warm_buckets),
                 ragged_decode_attention=n_layers * (steps + 1),
                 activation1d_kernel=G_PER_ENCODE)
@@ -2251,8 +2471,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
 
     # 4. batch, weight-only int4-g128: the same 8 requests, the BF16 dir
     # quantized at load
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     rep = serve_batch.main(["--model_dir", model_dir, "--requests", reqs_path,
                             "--out_dir", os.path.join(SERVING_DIR, "batch_int4"),
                             "--max_batch", "8", "--max_len", "2048", "--max_tokens", "256",
@@ -2264,7 +2483,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
         raise AssertionError("serve_batch --quantize int4-g128: the layers are not int4-g128")
     steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
     groups = eng._prefill_groups + warm_buckets
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want.update(flash_attention=n_layers * groups,
                 ragged_decode_attention=n_layers * (steps + 1),
                 activation1d_kernel=G_PER_ENCODE * len(PROMPT_SECONDS),
@@ -2291,8 +2510,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     size = sum(os.path.getsize(os.path.join(q_dir, f)) for f in os.listdir(q_dir))
     log(f"serving: wrote {q_dir} (pre-quantized int8, {size / 2 ** 30:.2f} GiB) in "
         f"{time.perf_counter() - t0:.2f} s")
-    for c in counters:
-        c.launches = 0
+    _zero(counters)
     out = os.path.join(SERVING_DIR, "single_int8.wav")
     rep = serving_inference.main([
         "--model_dir", q_dir, "--text", TEXT, "--output", out,
@@ -2300,7 +2518,7 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
         "--max_tokens", "128"])
     res = rep["result"]
     got = _counts(counters)
-    want = {c.__name__: 0 for c in counters}
+    want = _want(counters)
     want.update(flash_attention=n_layers, flash_decode_attention=n_layers * res.decode_steps,
                 activation1d_kernel=G_PER_ENCODE,
                 quant_matmul=(7 * n_layers + 1) * res.decode_steps + 1)
@@ -2315,6 +2533,496 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
     add(got)
     shutil.rmtree(SERVING_DIR, ignore_errors=True)
     return totals
+
+
+# --- the train-to-serve chain at full width (v1, c1, d1, sp3, l1, q1, qq) -------
+
+CHAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_chain")
+CHAIN_ARCH = "llama-3.2-1b"
+D1_LAYERS, D1_BATCH, D1_SEQ, D1_STEPS = 4, 8, 512, 8
+L1_BATCH, L1_SEQ = 2, 2048
+QQ_MODES = ("int8", "int4-g128")
+
+
+def _gib(path: str) -> float:
+    """GiB of the files under ``path``."""
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path)
+               for f in fs) / 2 ** 30
+
+
+class _WavRecorder:
+    """Wraps a module's ``save_wav`` to record, per path, whether the float
+    wav it was given was finite (a 16-bit file cannot show a NaN)."""
+
+    def __init__(self, module):
+        self.module, self.save, self.finite = module, module.save_wav, {}
+
+    def __enter__(self):
+        def save(path, wav, sample_rate):
+            self.finite[path] = bool(np.isfinite(wav).all())
+            self.save(path, wav, sample_rate)
+
+        self.module.save_wav = save
+        return self
+
+    def __exit__(self, *exc):
+        self.module.save_wav = self.save
+
+
+def run_vectorize(counters) -> tuple[str, dict]:
+    """v1: ``example/make_synthetic_samples.py`` writes V1_SAMPLES samples of
+    0.5-3 s; ``tools.data_vectorizer`` encodes them with the full-width
+    seeded encoder (all-zero semantics, no ``--tiny``) at batch 8 on the
+    card, each batch one acoustic encode (36 launches of kernel G, at the
+    shapes ``check_kernel_g`` held against its plain version: checked
+    here); ``tools.data_merger`` merges the shard. The merged files must load
+    through ``codes_io`` with every sample and its own code count. Logs each
+    batch's encode seconds and the rate over the train batches after the
+    first. Returns the dataset dir and the launch counts."""
+    from tts_max_tpu_torch.data import codes_io
+    from tts_max_tpu_torch.models.codec import api, filters
+    from tts_max_tpu_torch.tools import data_merger, data_vectorizer
+
+    samples = os.path.join(CHAIN_DIR, "samples")
+    ds = os.path.join(CHAIN_DIR, "dataset")
+    subprocess.run([sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                 "example", "make_synthetic_samples.py"),
+                    "--output_dir", samples, "--n", str(V1_SAMPLES)],
+                   check=True, capture_output=True, timeout=300)
+    kernel, encode, shapes, batches = filters.activation1d_kernel, api.AudioEncoder.encode, \
+        set(), []
+
+    def record_kernel(x, p):
+        shapes.add(tuple(x.shape))
+        return kernel(x, p)
+
+    def timed_encode(self, wav):  # the codes come back to the host: no sync needed
+        t = time.perf_counter()
+        codes = encode(self, wav)
+        batches.append((len(wav), time.perf_counter() - t))
+        return codes
+
+    filters.activation1d_kernel, api.AudioEncoder.encode = record_kernel, timed_encode
+    try:
+        _zero(counters)
+        t0 = time.perf_counter()
+        written = data_vectorizer.main(
+            ["--samples_path", os.path.join(samples, "samples.jsonl"), "--output_dir", ds,
+             "--batch_size", "8", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        filters.activation1d_kernel, api.AudioEncoder.encode = kernel, encode
+    merged = data_merger.main(["--dataset_dir", ds])
+    got = _counts(counters)
+    _check_counts("v1 vectorize", got, _want(counters, activation1d_kernel=G_PER_ENCODE
+                                             * len(batches)))
+    checked = {(b, t, c) for b in V1_BATCHES for _, t, c, _ in encoder_shapes(V1_T)}
+    if not shapes <= checked:
+        raise AssertionError(f"v1 ran kernel G at shapes check_kernel_g did not hold "
+                             f"against its plain version: {sorted(shapes - checked)}")
+    n_codes = 0
+    for split, (n, codes_n) in written.items():
+        codes, kept, spans, _ = codes_io.load_and_filter_audio_codes_and_samples(ds, split)
+        own = [int(16000 * s.duration) // 320 + 1 for s in kept]
+        if not (len(kept) == n and len(codes) == codes_n == sum(own)
+                and [b - a for a, b in spans] == own):
+            raise AssertionError(f"v1: merged {split} has {len(kept)} samples, {len(codes)} "
+                                 f"codes; spans {spans}, own counts {own}")
+        n_codes += len(codes)
+    n = sum(n for n, _ in written.values())
+    n_train = -(-written["train"][0] // 8)  # the train split is encoded first
+    warm = batches[1:n_train]
+    log(f"  v1 data_vectorizer: {n} samples ({written['train'][0]} train, "
+        f"{written['val'][0]} val), full-width seeded encoder, G at {len(shapes)} shapes; "
+        f"encode seconds a batch (size): "
+        + " ".join(f"{t:.3f} ({b})" for b, t in batches)
+        + f"; train batches 2-{n_train}: {sum(b for b, _ in warm) / sum(t for _, t in warm):.2f}"
+        f" samples/s encoded; the tool's wall {wall:.2f} s (wav reads, the encoder's "
+        f"set-up and the first batch's cuDNN set-up included), {n_codes} codes; "
+        f"data_merger {merged}; launches {got}")
+    return ds, got
+
+
+def run_convert_and_serve(train_out: str, counters, vocab: int = FIXED_VOCAB
+                          ) -> tuple[str, dict, dict]:
+    """c1: ``tools.convert_checkpoint`` turns the SFT's final model into an
+    HF dir (``--architecture llama-3.2-1b --vocab_size 193856 --quantize
+    int8``, with a seeded r 16 adapter written by ``lora.save_adapter``); the
+    merged weights must equal ``lora.merge`` of the final model, bitwise,
+    in the dir as read back. Then ``tools.serving_inference`` runs 128
+    tokens on the dir (A, B) and on its ``quantized-int8`` dir (A, Q).
+    Returns the HF dir (the quantized one deleted), the launch counts and
+    the final model's weights (on the host, as trained)."""
+    import shutil
+
+    from tts_max_tpu_torch.models import hf_import, lora, safetensors_io
+    from tts_max_tpu_torch.tools import convert_checkpoint, serving_inference
+    from tts_max_tpu_torch.training.optim import tree_items, tree_map
+
+    hf_dir = os.path.join(CHAIN_DIR, "serving")
+    trained = hf_import._unflatten_tree(safetensors_io.load_file(
+        os.path.join(train_out, "final_model", "model.safetensors")))
+    adapter = lora.init_lora(trained, r=16, seed=5, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for path, t in lora.adapter_items(adapter):
+        if path.endswith("/b"):  # b = 0 would merge to nothing
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.01)
+    adapter_path = os.path.join(CHAIN_DIR, "adapter.npz")
+    lora.save_adapter(adapter_path, adapter)
+    _zero(counters)
+    t0 = time.perf_counter()
+    merged, cfg = convert_checkpoint.main([
+        "--checkpoint_dir", train_out, "--output_dir", hf_dir, "--architecture", CHAIN_ARCH,
+        "--vocab_size", str(vocab), "--lora_adapter", adapter_path, "--lora_r", "16",
+        "--lora_alpha", "32", "--quantize", "int8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    _check_counts("c1 convert_checkpoint", _counts(counters), _want(counters))
+    q_dir = os.path.join(hf_dir, "quantized-int8")
+    sizes = (os.path.getsize(os.path.join(hf_dir, "model.safetensors")) / 2 ** 30,
+             _gib(q_dir), os.path.getsize(adapter_path) / 2 ** 20)
+    with torch.no_grad():
+        want = lora.merge(tree_map(lambda t: t.to("cuda").float(), trained), adapter, 32, 16)
+    loaded, lcfg = hf_import.load_model_from_hf_dir(hf_dir, device="cuda", dtype=torch.float32)
+    n_leaves = 0
+    for (name, a), (_, b), (_, c) in zip(tree_items(merged), tree_items(want),
+                                         tree_items(loaded)):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"c1: {name} of the HF dir is not lora.merge of the final "
+                                 f"model (max err {max_err(a, b):.3e}, {max_err(a, c):.3e})")
+        n_leaves += 1
+    moved = max_err(want["layers"]["mlp"]["w_up"]["kernel"],
+                    trained["layers"]["mlp"]["w_up"]["kernel"].to("cuda"))
+    if not (lcfg.vocab_size == vocab == cfg.vocab_size and n_leaves == len(
+            list(tree_items(trained))) and moved > 0):
+        raise AssertionError(f"c1: vocab {lcfg.vocab_size}, {n_leaves} leaves, merge moved "
+                             f"w_up by {moved}")
+    del merged, want, loaded
+    log(f"  c1 convert_checkpoint ({CHAIN_ARCH}, vocab {vocab}, r 16 alpha 32 adapter of "
+        f"{sizes[2]:.1f} MiB, --quantize int8): {convert_s:.2f} s; HF dir "
+        f"{sizes[0]:.2f} GiB (fp32, as the JAX tool writes), quantized-int8 {sizes[1]:.2f} "
+        f"GiB; all {n_leaves} tensors bitwise lora.merge of the final model (w_up moved "
+        f"by up to {moved:.3e})")
+
+    L, totals = cfg.n_layers, _want(counters)
+    for label, model_dir in (("HF dir", hf_dir), ("quantized-int8", q_dir)):
+        _zero(counters)
+        out = os.path.join(CHAIN_DIR, f"c1_{label.split()[0]}.wav")
+        rep = serving_inference.main([
+            "--model_dir", model_dir, "--text", TEXT, "--output", out,
+            "--voice_description", DESCRIPTIONS[0], "--max_tokens", "128", "--device", "cuda"])
+        res, got = rep["result"], _counts(counters)
+        want = dict(flash_attention=L, flash_decode_attention=L * res.decode_steps,
+                    activation1d_kernel=G_PER_ENCODE)
+        if model_dir == q_dir:
+            want["quant_matmul"] = (7 * L + 1) * res.decode_steps + 1
+        _check_counts(f"c1 serving_inference on the {label}", got, _want(counters, **want))
+        n = _check_wav_file(f"c1 {label}", out)
+        if not (np.isfinite(res.wav).all() and res.wav.shape == (1, n)):
+            raise AssertionError(f"c1 {label}: wav {res.wav.shape}, file {n} samples")
+        log(f"  c1 serving_inference on the {label}: load {rep['load_s']:.2f} s, prefill "
+            f"{1e3 * res.prefill_time:.2f} ms, {res.decode_steps} steps "
+            f"({res.decode_steps / res.decode_time:.1f} tok/s), {n / 16000:.2f} s of audio")
+        totals = {k: totals[k] + v for k, v in got.items()}
+    shutil.rmtree(q_dir)
+    return hf_dir, totals, trained
+
+
+def run_distill(hf_dir: str, ds: str, counters) -> tuple[str, dict]:
+    """d1: ``tools.distill_draft --model_dir <c1's dir> --dataset_dir <v1's>
+    --draft_layers 4 --batch 8 --seq 512 --steps 8``: each step runs kernel
+    A once a target layer without the training outputs and once a draft
+    layer with them, and A' once a draft layer. The steps must make no host
+    sync inside the step (flagged by the sync debug mode): the host reads
+    only step 1's KL (the tool logs every 20th) and, after the loop, every
+    step's. Logs
+    KL and grad norm per step, ms/step over steps 2-8 (one read at their
+    end), padded and real tokens/s and peak memory. Returns the draft dir
+    and the launch counts."""
+    from tts_max_tpu_torch.models import hf_import
+    from tts_max_tpu_torch.tools import distill_draft
+
+    draft_dir = os.path.join(CHAIN_DIR, "draft")
+    L = hf_import.config_from_hf(hf_dir).n_layers
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with flag_syncs() as syncs:
+        res = distill_draft.main([
+            "--model_dir", hf_dir, "--dataset_dir", ds, "--output_dir", draft_dir,
+            "--draft_layers", str(D1_LAYERS), "--batch", str(D1_BATCH), "--seq", str(D1_SEQ),
+            "--steps", str(D1_STEPS), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = _counts(counters)
+    _check_counts("d1 distill_draft", got, _want(
+        counters, flash_attention=(L + D1_LAYERS) * D1_STEPS,
+        flash_attention_bwd=D1_LAYERS * D1_STEPS))
+    if not (len(res.kl) == D1_STEPS and np.isfinite(res.kl).all()
+            and np.isfinite(res.grad_norm).all() and res.draft_cfg.n_layers == D1_LAYERS
+            and os.path.isfile(os.path.join(draft_dir, "model.safetensors"))):
+        raise AssertionError(f"d1: kl {res.kl}, grad norms {res.grad_norm}")
+    in_step = [st for st in syncs if any(f.filename.endswith(os.path.join("training", name))
+                                         for f in st for name in ("distill.py", "optim.py"))]
+    if in_step:
+        raise AssertionError(f"d1: host syncs inside the distillation step: "
+                             f"{dict(_sync_sites(in_step))}")
+    loop = collections.Counter(f"distill_draft.py:{f.lineno}" for st in syncs for f in st
+                               if f.filename.endswith("distill_draft.py")
+                               and f.name == "main")
+    ms = 1e3 * res.rest_seconds / (D1_STEPS - 1)
+    share = sum(res.real_tokens) / (res.tokens_per_step * D1_STEPS)
+    log(f"  d1 distill_draft (target {L} layers from the c1 dir, bf16; draft {D1_LAYERS} "
+        f"layers; batch {D1_BATCH} x seq {D1_SEQ}, {D1_STEPS} steps, AdamW 3e-4): KL "
+        + " ".join(f"{x:.4f}" for x in res.kl) + "; grad norms "
+        + " ".join(f"{x:.3f}" for x in res.grad_norm)
+        + f"; {ms:.1f} ms/step over steps 2-{D1_STEPS} (read once at their end; step 1 "
+        f"{res.first_seconds:.3f} s with its set-up), "
+        f"{res.tokens_per_step / ms * 1e3:.0f} padded tokens/s, "
+        f"{sum(res.real_tokens[1:]) / (D1_STEPS - 1) / ms * 1e3:.0f} real; real tokens a "
+        f"step {res.real_tokens} ({share:.1%} of the padded); host syncs in the tool's main "
+        f"(reads and the save) {dict(loop)}, none inside a step; peak max_memory_allocated "
+        f"{peak:.2f} GiB; draft dir {_gib(draft_dir):.2f} GiB; wall {wall:.1f} s; "
+        f"launches {got}")
+    return draft_dir, got
+
+
+def run_sp3(tok, sv, hf_dir: str, draft_dir: str, counters) -> tuple[dict, dict]:
+    """sp3: ``speculative_generate`` with c1's target and d1's draft, both
+    read from their dirs in bf16, on sp2's batch and budget (the four voice
+    descriptions, 128 tokens, gamma 4, temperature 0.9, top-k 50). The
+    weights are random and barely trained, so the acceptance measures the
+    pipeline, not speech. Returns its numbers and the launch counts."""
+    from tts_max_tpu_torch.data import normalization
+    from tts_max_tpu_torch.inference.speculative import speculative_generate
+    from tts_max_tpu_torch.models import hf_import
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+
+    target, tcfg = hf_import.load_model_from_hf_dir(hf_dir, device="cuda", dtype=torch.bfloat16)
+    draft, dcfg = hf_import.load_model_from_hf_dir(draft_dir, device="cuda",
+                                                   dtype=torch.bfloat16)
+    normalizer = normalization.create()
+    rows = [engine_prompt(tok, normalizer, None, "desc", i)[0] for i in range(4)]
+    lens = [len(r) for r in rows]
+    prompt = np.zeros((4, max(lens)), np.int32)
+    for i, r in enumerate(rows):
+        prompt[i, :len(r)] = r
+    window, gamma = sv.generation_window(), 4
+    _zero(counters)
+    res = speculative_generate(target, tcfg, draft, dcfg, prompt, lens,
+                               torch.Generator(device="cuda").manual_seed(7),
+                               sp=SamplingParams(temperature=0.9, top_k=50),
+                               max_new_tokens=128, eos_id=sv.speech_end_id, gamma=gamma,
+                               vocab_window=window, device="cuda")
+    got = _counts(counters)
+    _check_counts("sp3 speculative", got, _want(
+        counters, flash_attention=tcfg.n_layers + dcfg.n_layers,
+        flash_decode_attention=dcfg.n_layers * (gamma + 1) * res.steps))
+    toks, n_gen = res.tokens.cpu().numpy(), res.num_generated.cpu().numpy()
+    lo, size = window
+    for row, n in zip(toks, n_gen):
+        if not (((row[:n] >= lo) & (row[:n] < lo + size)).all()
+                and (n == 128 or row[n - 1] == sv.speech_end_id)):
+            raise AssertionError(f"sp3: a row of {n} tokens: {row[:n]}")
+    out = dict(rounds=res.steps, per_round=float(np.mean((n_gen - 1) / res.steps)),
+               tok_s=int(n_gen.sum()) / res.decode_time, ms=1e3 * res.decode_time)
+    log(f"  sp3 bf16, c1's {tcfg.n_layers}-layer target and d1's distilled {dcfg.n_layers}-"
+        f"layer draft from their dirs, batch 4, 128 tokens, gamma {gamma}, temperature 0.9, "
+        f"top-k 50: {res.steps} rounds, {out['per_round']:.3f} tokens per round a row, "
+        f"{out['tok_s']:.1f} tok/s ({out['ms']:.1f} ms); random weights, so the acceptance "
+        f"measures the pipeline, not speech")
+    return out, got
+
+
+def run_lora_step(params, cfg, counters) -> dict:
+    """l1: one forward and backward of ``lora.lora_loss_fn`` around the
+    chunked causal-LM loss (chunk 256), r 16 and alpha 32 on every attn/mlp
+    kernel of the main path's Llama-3.2-1B, batch 2 x 2048, remat full as
+    ``sft.json`` has it, run twice (the second timed): every adapter grad
+    finite and non-zero, no base leaf with a grad, the base bytes unchanged.
+    Returns the launch counts of both runs."""
+    import dataclasses
+
+    from tts_max_tpu_torch.models import lora
+    from tts_max_tpu_torch.training import train_step as ts
+    from tts_max_tpu_torch.training.optim import tree_items, tree_map
+
+    rcfg = dataclasses.replace(cfg, remat=True, remat_policy=None)
+    before = tree_map(lambda t: t.clone(), params)
+    adapters = lora.init_lora(params, r=16, seed=8)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for path, t in lora.adapter_items(adapters):
+        if path.endswith("/b"):  # with b = 0 the grads of a would be zero
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.01)
+        t.requires_grad_(True)
+    leaves = [t for _, t in lora.adapter_items(adapters)]
+    rng = np.random.default_rng(10)
+    ids = rng.integers(0, 65806, (L1_BATCH, L1_SEQ)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :L1_SEQ // 4] = -100
+    batch = ts.to_device_batch({"input_ids": ids, "labels": labels}, "cuda")
+    fn = lora.lora_loss_fn(params, 32, 16, lambda p, b: ts.loss_fn(p, rcfg, b, 256)[0])
+    L, totals, times = cfg.n_layers, _want(counters), []
+    for _ in range(2):
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fn(adapters, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = _counts(counters)
+        _check_counts("l1 LoRA step", got, _want(counters, flash_attention=2 * L,
+                                                 flash_attention_bwd=L))
+        totals = {k: totals[k] + v for k, v in got.items()}
+    bad = [name for (name, _), g in zip(lora.adapter_items(adapters), grads)
+           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    touched = [name for (name, a), (_, b) in zip(tree_items(params), tree_items(before))
+               if a.requires_grad or a.grad is not None or not torch.equal(a, b)]
+    if bad or touched or not bool(torch.isfinite(loss.detach())):
+        raise AssertionError(f"l1: loss {float(loss.detach())}, bad adapter grads {bad}, base leaves "
+                             f"touched {touched}")
+    log(f"  l1 LoRA step ({lora.trainable_count(adapters)} adapter params on "
+        f"{len(leaves) // 2} stacked kernels, batch {L1_BATCH} x {L1_SEQ}, remat full): loss "
+        f"{float(loss.detach()):.4f}; {1e3 * times[1]:.1f} ms forward and backward (first run "
+        f"{1e3 * times[0]:.1f} ms); every adapter grad finite and non-zero, the base "
+        f"unchanged and gradless; launches {got} a run")
+    return totals
+
+
+def _check_wavs(label, rec, paths) -> None:
+    for path in paths:
+        _check_wav_file(label, path)
+        if not rec.finite.get(path):
+            raise AssertionError(f"{label}: {path} was not written finite ({rec.finite})")
+
+
+def _q1_dir() -> str:
+    """q1's files, beside the chain's: they outlive the chain's directory."""
+    return os.path.join(os.path.dirname(CHAIN_DIR), "chip_smoke_q1")
+
+
+def write_seeded_codec_checkpoints() -> tuple[str, str, str]:
+    """q1's inputs: the main path's codec at full width, drawn from its seeds
+    (the Vocos decoder, the encoder and a 24-layer w2v-bert; the same
+    weights ``build_main_path`` draws later), written as torch checkpoints in
+    the layouts the port's importers read and read back bitwise; and a
+    seeded 5 s prompt wav. Returns the decoder and encoder checkpoint paths
+    and the wav's path; the directory goes after the phrases of q1."""
+    from tts_max_tpu_torch import convert
+    from tts_max_tpu_torch.data.audio_io import save_wav
+    from tts_max_tpu_torch.models.codec import encoder, torch_import, vocos, w2vbert
+
+    vcfg, ecfg, wcfg = vocos.VocosConfig(), encoder.EncoderConfig(), w2vbert.W2VBertConfig()
+    dec = vocos.init_decoder(vcfg, seed=1, device="cuda")
+    enc = encoder.init_encoder(ecfg, seed=2, device="cuda")
+    w2v = w2vbert.init_params(wcfg, seed=3, device="cuda")
+    t0 = time.perf_counter()
+    dec_path, enc_path = write_codec_checkpoints(os.path.join(_q1_dir(), "codec"), dec, enc,
+                                                 w2v)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec_sd = torch_import.load_torch_checkpoint(dec_path)
+    enc_sd = torch_import.load_torch_checkpoint(enc_path)
+    dec_back = torch_import.import_decoder(dec_sd, vcfg, device="cuda")
+    enc_back = torch_import.import_encoder(enc_sd, ecfg, device="cuda")
+    w2v_back = convert.w2vbert_from_numpy(w2vbert.import_hf_state_dict(enc_sd, wcfg), wcfg,
+                                          device="cuda")
+    read_s = time.perf_counter() - t0
+    # the trees read back, written out again, give the files' tensors bitwise
+    again = {**decoder_state_dict(dec_back, enc_back["quantizer"]["project_in"]),
+             **encoder_state_dict(enc_back), **w2vbert_state_dict(w2v_back)}
+    written = {**dec_sd, **enc_sd}
+    bad = [k for k in written
+           if k not in again or not torch.equal(again[k], torch.as_tensor(written[k]))]
+    if bad or len(again) != len(written):
+        raise AssertionError(f"q1: codec checkpoint tensors that do not read back bitwise: "
+                             f"{bad[:8]} ({len(again)} rewritten, {len(written)} written)")
+    n = len(written)
+    wav_path = os.path.join(_q1_dir(), "p5s.wav")
+    save_wav(wav_path, prompt_wavs()["p5s"], 16000)
+    log(f"  q1 seeded codec checkpoints (Vocos {vcfg.hidden_dim} x {vcfg.depth}, encoder, "
+        f"w2v-bert {wcfg.hidden_size} x {wcfg.num_layers}): decoder "
+        f"{os.path.getsize(dec_path) / 2 ** 30:.2f} GiB, encoder with w2v-bert "
+        f"{os.path.getsize(enc_path) / 2 ** 30:.2f} GiB written in {write_s:.2f} s, read back "
+        f"in {read_s:.2f} s: all {n} tensors bitwise")
+    return dec_path, enc_path, wav_path
+
+
+def run_random_phrases(tok, sv, model, codec, trained, wav_path: str, counters) -> dict:
+    """q1's second half: ``RandomPhrasesSynthesizer`` on the SFT's trained
+    weights (c1 read them) with two phrases and ``max_tokens`` 64, through
+    the main path's codec (the same seeded weights as q1's checkpoints): both
+    wavs must be written, finite. The validator logs and swallows its
+    exceptions, so a missing wav fails the phase. Returns the launch counts."""
+    import shutil
+
+    from tts_max_tpu_torch.inference import quality
+    from tts_max_tpu_torch.inference.synthesize import InferenceSettings, LocalTtsModel
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.training.optim import tree_map
+
+    params = tree_map(lambda t: t.to("cuda"), trained)
+    cfg = llama.config_for_architecture(CHAIN_ARCH, vocab_size=FIXED_VOCAB)
+    tts = LocalTtsModel(params, cfg, tok, sv, codec.encoder, model._audio_decoder, device="cuda")
+    out = os.path.join(_q1_dir(), "phrases")
+    L = cfg.n_layers
+    _zero(counters)
+    t0 = time.perf_counter()
+    with _WavRecorder(quality) as rec:
+        quality.RandomPhrasesSynthesizer(
+            tts, out, prompt_wavs={wav_path: REQUESTS[1][2]},
+            phrases=quality.DEFAULT_PHRASES[:2],
+            settings=InferenceSettings(max_tokens=64)).validate(params, TRAIN_STEPS + 1)
+    wall = time.perf_counter() - t0
+    got = _counts(counters)
+    steps = got["flash_decode_attention"] // L
+    _check_counts("q1 RandomPhrasesSynthesizer", got, _want(
+        counters, flash_attention=2 * L, flash_decode_attention=L * steps,
+        activation1d_kernel=G_PER_ENCODE))
+    _check_wavs("q1 random phrases", rec, [
+        os.path.join(out, "generations", str(TRAIN_STEPS + 1), f"rank0_{i}.wav")
+        for i in range(2)])
+    if not 2 <= steps <= 128:
+        raise AssertionError(f"q1 random phrases: {steps} decode steps")
+    log(f"  q1 RandomPhrasesSynthesizer on the trained weights, two phrases, max_tokens 64: "
+        f"both wavs written finite ({steps} decode steps) in {wall:.2f} s; launches {got}")
+    shutil.rmtree(_q1_dir())
+    return got
+
+
+def run_quant_quality(counters) -> dict:
+    """qq: ``tools.quant_quality`` at the 1B width with the tool's defaults
+    (batch 8, prompt 128, 64 greedy steps, seeded bf16 weights), modes int8
+    and int4-g128: per mode two prefills of both models (A), two greedy
+    decodes (B), and the quantized decode's products and head through kernel
+    Q at 8 rows. Returns the launch counts."""
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.tools import quant_quality
+
+    modes = list(QQ_MODES)
+    _zero(counters)
+    t0 = time.perf_counter()
+    rows = quant_quality.main(["--arch", CHAIN_ARCH, "--modes", ",".join(modes),
+                               "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    got = _counts(counters)
+    L, steps = llama.config_for_architecture(CHAIN_ARCH).n_layers, 64
+    _check_counts("qq quant_quality", got, _want(
+        counters, flash_attention=4 * L * len(modes),
+        flash_decode_attention=2 * L * steps * len(modes),
+        quant_matmul=((7 * L + 1) * steps + 1) * len(modes)))
+    for r in rows:
+        if not np.isfinite([r["snr_db"], r["top1"], r["top8"], r["rmse"], r["div"]]).all():
+            raise AssertionError(f"qq: {r}")
+    log(f"  qq quant_quality {CHAIN_ARCH} (random init, batch 8 x prompt 128, {steps} "
+        f"greedy steps) in {wall:.1f} s: " + "; ".join(
+            f"{r['mode']} snr {r['snr_db']:.2f} dB, top1 {r['top1']:.3f}, top8 "
+            f"{r['top8']:.3f}, rmse {r['rmse']:.4f}, div@ {r['div']:.1f}, tok= "
+            f"{r['match']:.3f}" for r in rows)
+        + f"; {quant_quality.RANDOM_NOTE} launches {got}")
+    return got
 
 
 def main() -> int:
@@ -2407,13 +3115,50 @@ def main() -> int:
                 ragged_decode_attention, paged_decode_attention_dense,
                 paged_decode_attention_dma, paged_decode_attention, activation1d_kernel,
                 quant_matmul]
+    import shutil
+
+    shutil.rmtree(CHAIN_DIR, ignore_errors=True)
+    shutil.rmtree(_q1_dir(), ignore_errors=True)
+    chain = _want(counters)
+
+    def add_chain(got):
+        for k, v in got.items():
+            chain[k] += v
+
+    phase("v1 vectorize")
+    ds, got = run_vectorize(counters)
+    add_chain(got)
+    phase("q1 seeded codec checkpoints")
+    q1 = write_seeded_codec_checkpoints()
     phase("SFT path")
     t_tr = time.perf_counter()
-    trained = run_training(counters)
+    trained = run_training(counters, validation=q1)
     log(f"  SFT path wall {time.perf_counter() - t_tr:.1f} s")
+    shutil.rmtree(os.path.dirname(q1[0]))  # the codec checkpoints
+    phase("c1 convert and serve")
+    hf_dir, got, trained_params = run_convert_and_serve(os.path.join(TRAIN_DIR, "out"),
+                                                        counters)
+    add_chain(got)
+    shutil.rmtree(TRAIN_DIR)
+    phase("d1 distill")
+    draft_dir, got = run_distill(hf_dir, ds, counters)
+    add_chain(got)
+    phase("sp3 speculative with the distilled draft")
+    sp3, got = run_sp3(tok, sv, hf_dir, draft_dir, counters)
+    add_chain(got)
+    shutil.rmtree(CHAIN_DIR)
     phase("synthesis path")
     model, params, cfg, codec, launches = run_main_path(tok, sv, counters)
     for name, n in trained.items():
+        launches[name] += n
+    phase("l1 LoRA step")
+    add_chain(run_lora_step(params, cfg, counters))
+    phase("q1 random phrases")
+    add_chain(run_random_phrases(tok, sv, model, codec, trained_params, q1[2], counters))
+    del trained_params
+    phase("qq quant quality")
+    add_chain(run_quant_quality(counters))
+    for name, n in chain.items():
         launches[name] += n
     phase("engines")
     for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
@@ -2422,7 +3167,8 @@ def main() -> int:
     phase("speculative decoding")
     log("speculative decoding: Llama-3.2-1B target, window (262, 65542)")
     t_sp = time.perf_counter()
-    for name, n in run_speculative(tok, sv, params, cfg, codec.encoder, counters).items():
+    for name, n in run_speculative(tok, sv, params, cfg, codec.encoder, counters,
+                                   sp3=sp3).items():
         launches[name] += n
     log(f"  sp1 + sp2 wall {time.perf_counter() - t_sp:.1f} s")
     phase("serving CLIs")

@@ -468,6 +468,8 @@ def test_speculative_draft_equal_to_target_on_the_card():
     (2, 130, 32, 8, 64, torch.bfloat16, 97, 1.0),     # partial tiles in both kernels
     (8, 1024, 32, 8, 64, torch.bfloat16, None, 1.0),
     (1, 333, 8, 2, 128, torch.bfloat16, 301, 4.0),    # D = 128 on the tensor cores
+    (8, 512, 32, 8, 64, torch.bfloat16, None, 1.0),   # draft distillation's layer
+    (2, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),  # the LoRA step's layer
 ])
 def test_flash_attention_bwd_kernel_matches_plain(b, s, hq, hkv, d, dtype, kv_len, q_scale):
     """Kernel A' against the plain backward within GRAD_TOL: bf16 (tensor
@@ -556,3 +558,56 @@ def test_flash_attention_raises_on_inputs_the_backward_does_not_take():
         flash_attention(q32, k32, v32)
     with pytest.raises(ValueError, match="dtypes"):
         flash_attention(*(t.detach().half().requires_grad_(True) for t in (q, k, v)))
+
+
+@pytest.mark.gpu
+def test_distill_step_on_the_card_matches_the_cpu():
+    """``distill_loss`` and its draft grads on the card (kernels A and A',
+    fp32 on the CUDA cores, TF32 off) against the CPU's plain versions
+    within GRAD_TOL; then one ``make_distill_step`` on the card launches A
+    once a target layer (no training outputs) and once a draft layer, and A'
+    once a draft layer."""
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.ops.attention import grad_tol_ratio
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from tts_max_tpu_torch.training import distill, optim
+
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=3, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, max_seq_len=128, dtype=torch.float32)
+    target = llama.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 512, (2, 100), generator=g)
+    mask = torch.arange(100)[None, :] < torch.tensor([[100], [71]])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        tp = optim.tree_map(lambda t: t.to(dev), target)
+        draft, dcfg = distill.truncated_draft(tp, cfg, 1)
+        leaves = []
+
+        def track(p):
+            q = p.detach().requires_grad_(True)
+            leaves.append(q)
+            return q
+
+        live = optim.tree_map(track, draft)
+        loss = distill.distill_loss(live, tp, toks.to(dev), mask.to(dev), draft_cfg=dcfg,
+                                    target_cfg=cfg, chunk_size=32)
+        grads = torch.autograd.grad(loss, leaves)
+        results[dev] = (float(loss.detach()), [x.cpu() for x in grads])
+    assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5)
+    for a, r in zip(results["cuda"][1], results["cpu"][1]):
+        assert grad_tol_ratio(a, r) <= 1.0
+
+    tp = optim.tree_map(lambda t: t.to("cuda"), target)
+    draft, dcfg = distill.truncated_draft(tp, cfg, 1)
+    tx = optim.AdamW(1e-3, betas=(0.9, 0.95), weight_decay=0.01)
+    step = distill.make_distill_step(dcfg, cfg, tx, chunk_size=32)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    new, _, loss, gnorm = step(draft, tp, tx.init(draft), toks, mask)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        cfg.n_layers + dcfg.n_layers, dcfg.n_layers)
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+    assert float(loss) == pytest.approx(results["cpu"][0], rel=1e-5)
+    assert not torch.equal(new["embed"]["embedding"], draft["embed"]["embedding"])

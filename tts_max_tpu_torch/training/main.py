@@ -5,13 +5,19 @@
 
 config -> byte tokenizer and seeded weights -> weighted datasets and loaders
 -> steps math -> cosine schedule and AdamW -> optional dry-run step -> loop
-(eval, checkpoints, resume) -> final model. It runs on one device, the card
-unless ``--device cpu`` is given.
+(eval, checkpoints with quality validation, resume) -> final model. It runs
+on one device, the card unless ``--device cpu`` is given.
+
+Quality validation (``checkpointing.validation_type`` "random_phrases" or
+"prompt_continuation", with ``--codec_decoder_checkpoint`` and
+``--codec_encoder_checkpoint``) synthesizes through a ``LocalTtsModel`` on
+the training params after each checkpoint (``inference/quality.py``);
+``--validation_prompt_wavs`` takes ``wav_path:transcript`` pairs.
 
 Not ported yet: the HF-directory branch of ``build_model_and_tokenizer``
-(its ``tokenizer.json`` reader) and the quality validation of
-``--codec_*_checkpoint`` (both ROADMAP.md queue 1 item 1b), and any mesh of
-more than one device (queue 1 item 4); each raises.
+(its ``tokenizer.json`` reader, the head of ROADMAP.md queue 1, item 1b's
+remainder) and any mesh of more than one device (queue 1 item 4); each
+raises.
 """
 
 from __future__ import annotations
@@ -63,17 +69,17 @@ def build_model_and_tokenizer(config: ExperimentConfig, device="cuda"):
     """Tokenizer, fp32 params on ``device`` and model config.
 
     A local HF directory as ``model_name`` needs the port's own
-    ``tokenizer.json`` reader, which comes with ROADMAP.md queue 1 item 1b;
-    otherwise the named architecture with the air-gapped byte tokenizer and
-    weights drawn by the port's seeded ``init_params`` (torch's generator,
-    so not JAX's numbers) is the from-scratch path."""
+    ``tokenizer.json`` reader, the head of ROADMAP.md queue 1 (item 1b's
+    remainder); otherwise the named architecture with the air-gapped byte
+    tokenizer and weights drawn by the port's seeded ``init_params``
+    (torch's generator, so not JAX's numbers) is the from-scratch path."""
     mp = config.modeling.parameters
     if os.path.isdir(mp.model_name):
         raise NotImplementedError(
             f"model_name {mp.model_name!r} is an HF directory: its tokenizer.json "
-            "reader comes with ROADMAP.md queue 1 item 1b; set model_name to a "
-            "name that is not a directory to train from scratch with "
-            "modeling.parameters.architecture")
+            "reader is not ported yet (the head of ROADMAP.md queue 1, item 1b's "
+            "remainder); set model_name to a name that is not a directory to train "
+            "from scratch with modeling.parameters.architecture")
     arch = mp.architecture or "llama-tiny"
     tokenizer = build_byte_tokenizer(mp.codebook_size)
     cfg = llama.config_for_architecture(
@@ -91,6 +97,32 @@ def _check_one_device(config: ExperimentConfig) -> None:
             f"mesh {dataclasses.asdict(m)} with strategy "
             f"{config.training.strategy.value} needs more than one device; "
             "multi-device training is ROADMAP.md queue 1 item 4")
+
+
+def build_quality_validator(config: ExperimentConfig, args, params, model_cfg, tokenizer,
+                            device):
+    """The checkpoint-time validator of ``checkpointing.validation_type``, as
+    the JAX trainer wires it: the codec decoder and (prompt-caching) encoder
+    of ``--codec_*_checkpoint``, a ``LocalTtsModel`` on the training params
+    (the validator points it at the latest ones at each checkpoint), and
+    ``--validation_prompt_wavs`` as ``wav_path:transcript`` pairs. None
+    without a validation type or a decoder checkpoint."""
+    vtype = config.checkpointing.validation_type
+    if not (vtype and vtype != "none" and args.codec_decoder_checkpoint):
+        return None
+    from tts_max_tpu_torch.core.tokenization import speech_vocab
+    from tts_max_tpu_torch.inference import quality
+    from tts_max_tpu_torch.inference.synthesize import LocalTtsModel
+    from tts_max_tpu_torch.models.codec import api
+
+    decoder = api.create_decoder(args.codec_decoder_checkpoint, device=device)
+    encoder = api.CachingAudioEncoder(
+        api.create_encoder(args.codec_encoder_checkpoint, device=device))
+    tts_model = LocalTtsModel(params, model_cfg, tokenizer, speech_vocab(tokenizer), encoder,
+                              decoder, device=device)
+    prompt_wavs = dict(p.split(":", 1) for p in args.validation_prompt_wavs)
+    return quality.create(vtype, tts_model, config.output_dir, 0, 1,
+                          prompt_wavs=prompt_wavs, prompt_wav_paths=list(prompt_wavs))
 
 
 def run_training(config: ExperimentConfig, args) -> TrainResult | None:
@@ -170,11 +202,8 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
         except FileNotFoundError:
             pass
 
-    vtype = config.checkpointing.validation_type
-    if vtype and vtype != "none" and args.codec_decoder_checkpoint:
-        raise NotImplementedError(
-            f"validation_type {vtype!r}: quality validation comes with ROADMAP.md "
-            "queue 1 item 1b")
+    quality_validator = build_quality_validator(config, args, params, model_cfg, tokenizer,
+                                                device)
 
     history = []
 
@@ -191,8 +220,8 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
         train_step=timed_step, eval_step=eval_fn, params=params, opt_state=opt_state,
         train_loader=train_loader, val_loader=val_loader, config=config,
         total_training_steps=total_steps, steps_per_epoch=steps_per_epoch,
-        checkpoint_manager=mgr, lr_schedule=schedule, statistics=statistics,
-        metrics_logger=metrics_logger)
+        checkpoint_manager=mgr, quality_validator=quality_validator, lr_schedule=schedule,
+        statistics=statistics, metrics_logger=metrics_logger)
     metrics_logger.close()
     mgr.wait()
     t0 = time.perf_counter()
@@ -214,8 +243,11 @@ def main(argv=None) -> TrainResult | None:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain PyTorch path)")
     parser.add_argument("--codec_encoder_checkpoint", default="",
-                        help="codec encoder for quality validation (not ported yet)")
-    parser.add_argument("--codec_decoder_checkpoint", default="")
+                        help="xcodec2 torch checkpoint of the codec encoder (with its "
+                             "w2v-bert weights) for quality validation")
+    parser.add_argument("--codec_decoder_checkpoint", default="",
+                        help="xcodec2 torch checkpoint of the codec decoder; quality "
+                             "validation runs only with one")
     parser.add_argument("--validation_prompt_wavs", nargs="*", default=[],
                         help="wav_path:transcript pairs for random-phrases validation")
     args = parser.parse_args(argv)

@@ -100,18 +100,27 @@ class AdamW:
         b1, b2, eps, wd = self.b1, self.b2, self.eps, self.weight_decay
         count = state["count"] + 1
         f32 = torch.float32
-        bc1 = 1 - torch.tensor(b1, dtype=f32) ** count
-        bc2 = 1 - torch.tensor(b2, dtype=f32) ** count
-        lr = -torch.tensor(self.schedule(state["count"]), dtype=f32)
+        # fp32 scalars on the host, made again on each leaf's device by a fill
+        # (a copy from pageable host memory would stall the host on the card)
+        scalars = {"bc1": float(1 - torch.tensor(b1, dtype=f32) ** count),
+                   "bc2": float(1 - torch.tensor(b2, dtype=f32) ** count),
+                   "lr": float(-torch.tensor(self.schedule(state["count"]), dtype=f32))}
+        made = {}
+
+        def scalar(name, like):
+            key = (name, like.device, like.dtype)
+            if key not in made:
+                made[key] = torch.full((), scalars[name], dtype=like.dtype, device=like.device)
+            return made[key]
 
         def leaf(g, mu, nu, p):
             mu = (1 - b1) * g + b1 * mu
             nu = (1 - b2) * (g ** 2) + b2 * nu
-            mu_hat = mu / bc1.to(mu.device, mu.dtype)
-            nu_hat = nu / bc2.to(nu.device, nu.dtype)
+            mu_hat = mu / scalar("bc1", mu)
+            nu_hat = nu / scalar("bc2", nu)
             u = mu_hat / (torch.sqrt(nu_hat) + eps)
             u = u + wd * p
-            u = lr.to(u.device, u.dtype) * u
+            u = scalar("lr", u) * u
             if self.mu_dtype is not None:
                 mu = mu.to(self.mu_dtype)
             return u, mu, nu
