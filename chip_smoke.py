@@ -29,9 +29,9 @@ kernel it replaced, every case launched twice and held bitwise equal, the
 library's SASS required to hold HMMA (tensor-core) instructions. It checks the port's GPU
 path against its CPU path on a small model, through ``generate`` (also
 quantized: int8 and int4-g64, greedy ids) and through the paged engine
-under each paged entry point, on a small codec encoder, and through one fp32
+under each paged entry point, on a small codec encoder, through one fp32
 train step (kernels A and A' against the plain versions: loss, every grad,
-the updated params). Then it trains Llama-3.2-1B at full width through the
+the updated params) and through one tiny GAN step (cuDNN conv2d, cuFFT). Then it trains Llama-3.2-1B at full width through the
 SFT entry point (``tts_max_tpu_torch.training.main`` on
 ``example/configs/sft.json``, 8 steps on a seeded dataset the port's
 ``codes_io`` writes, a checkpoint, the final model, a one-step resume), and
@@ -64,7 +64,15 @@ q1 writes seeded full-width codec checkpoints, with which the SFT's
 one-step resume through ``training.main`` runs prompt-continuation quality
 validation, then runs the random-phrases validator on the trained weights;
 qq measures quantization quality
-(``tools.quant_quality``, int8 and int4-g128, kernel Q). Launch counters,
+(``tools.quant_quality``, int8 and int4-g128, kernel Q); g1 trains the
+codec decoder as a GAN at full width (``training.codec.gan_loop``, 8 steps
+on v1's dataset from q1's decoder checkpoint as written, no host
+sync inside a step, one step traced by ``utils/profiling.trace`` for its
+device-busy share); h1, last, fine-tunes from the serving BF16 HF dir with
+the repository's Llama-3-style ``tokenizer.json`` copied in
+(``training.main``, 5 steps; the tokenizer's golden ids checked). A tiny
+GAN step runs on the card and the CPU among the small-model checks.
+Launch counters,
 set to 0 before each path and read after it, must equal what that path's
 requests and the engines' own counts imply.
 The next-to-last lines are a JSON summary of the kernels and the card's
@@ -2531,7 +2539,6 @@ def run_serving(tok, sv, params, cfg, counters) -> dict:
         f"({res.decode_steps / res.decode_time:.1f} tok/s, "
         f"{1e3 * res.decode_time / res.decode_steps:.3f} ms/step), {n / 16000:.2f} s of audio")
     add(got)
-    shutil.rmtree(SERVING_DIR, ignore_errors=True)
     return totals
 
 
@@ -2905,17 +2912,29 @@ def _q1_dir() -> str:
 
 def write_seeded_codec_checkpoints() -> tuple[str, str, str]:
     """q1's inputs: the main path's codec at full width, drawn from its seeds
-    (the Vocos decoder, the encoder and a 24-layer w2v-bert; the same
-    weights ``build_main_path`` draws later), written as torch checkpoints in
-    the layouts the port's importers read and read back bitwise; and a
-    seeded 5 s prompt wav. Returns the decoder and encoder checkpoint paths
-    and the wav's path; the directory goes after the phrases of q1."""
+    (the Vocos decoder, the encoder and a 24-layer w2v-bert; the weights
+    ``build_main_path`` draws later, but for the decoder's biases, here drawn
+    from N(0, 0.02^2) as a trained decoder's are not zero), written as torch
+    checkpoints in the layouts the port's importers read and read back
+    bitwise; and a seeded 5 s prompt wav. g1 trains from this decoder
+    checkpoint on v1's codes, where the seeded encoder gives every frame
+    FSQ's zero code: a decoder with zero biases maps those to all-zero
+    activations, where each of its normalizations scales the gradient by
+    1/sqrt(eps), and its grads overflow (NaN at g1's second step on the
+    H100). Returns the decoder and encoder checkpoint paths and the wav's
+    path; the directory goes after the phrases of q1."""
     from tts_max_tpu_torch import convert
     from tts_max_tpu_torch.data.audio_io import save_wav
     from tts_max_tpu_torch.models.codec import encoder, torch_import, vocos, w2vbert
+    from tts_max_tpu_torch.training import optim
 
     vcfg, ecfg, wcfg = vocos.VocosConfig(), encoder.EncoderConfig(), w2vbert.W2VBertConfig()
     dec = vocos.init_decoder(vcfg, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    with torch.no_grad():
+        for path, t in optim.tree_items(dec):
+            if path.endswith("bias"):
+                t.copy_(0.02 * torch.randn(t.shape, generator=gen, device="cuda"))
     enc = encoder.init_encoder(ecfg, seed=2, device="cuda")
     w2v = w2vbert.init_params(wcfg, seed=3, device="cuda")
     t0 = time.perf_counter()
@@ -3025,6 +3044,287 @@ def run_quant_quality(counters) -> dict:
     return got
 
 
+# --- the codec GAN (g1, its small check) and SFT from an HF directory (h1) ---
+
+GAN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_gan")
+GAN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "example", "configs",
+                          "codec_training_config.json")
+G1_STEPS, G1_SAVE, G1_TRACED = 8, 4, 5
+H1_STEPS, H1_TRACED = 5, 2  # a warm-up step, a traced one, three timed ones
+TOKENIZER_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                 "fixtures", "llama3_style_tokenizer")
+SMALL_GAN_TOL = {"metrics": 1e-4, "params": 1e-4}
+
+
+class StepProbe:
+    """Wraps a module's step function for one phase. Each call runs inside
+    ``flag_syncs`` (the syncs of call i in ``syncs[i]``), and call
+    ``traced`` (1-based) under ``utils/profiling.trace``, timed inside the
+    trace between two ``torch.cuda.synchronize()`` (outside the step): its
+    busy time is the union of the card's kernel and copy intervals. The
+    profiler slows the host, so the share is given both over that traced
+    wall and over an untraced step's wall (the same device work)."""
+
+    def __init__(self, module, name: str, traced: int, log_dir: str):
+        self.module, self.name, self.traced, self.log_dir = module, name, traced, log_dir
+        self.syncs, self.busy_ms, self.wall_ms = [], None, None
+
+    def __enter__(self):
+        from tts_max_tpu_torch.utils import profiling
+
+        real = self.real = getattr(self.module, self.name)
+
+        def step(*args, **kw):
+            if len(self.syncs) + 1 != self.traced:
+                with flag_syncs() as syncs:
+                    out = real(*args, **kw)
+                self.syncs.append(syncs)
+                return out
+            with profiling.trace(self.log_dir) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with flag_syncs() as syncs:
+                    out = real(*args, **kw)
+                torch.cuda.synchronize()
+                self.wall_ms = 1e3 * (time.perf_counter() - t0)
+            self.busy_ms = profiling.device_busy_us(prof) / 1e3
+            self.syncs.append(syncs)
+            return out
+
+        setattr(self.module, self.name, step)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def busy_line(self, untraced_ms: float) -> str:
+        if not self.busy_ms:
+            return (f"device-busy share of step {self.traced}: not measured (the profiler "
+                    f"recorded no device time; traced wall {self.wall_ms:.2f} ms)")
+        return (f"device-busy share of step {self.traced} (utils/profiling.trace): "
+                f"{self.busy_ms:.2f} ms busy of its traced wall {self.wall_ms:.2f} ms = "
+                f"{self.busy_ms / self.wall_ms:.4f}; of an untraced step's "
+                f"{untraced_ms:.2f} ms = {self.busy_ms / untraced_ms:.4f}")
+
+    def check_no_sync(self, label: str) -> None:
+        bad = {i + 1: _sync_sites(s) for i, s in enumerate(self.syncs) if s}
+        if bad:
+            raise AssertionError(f"{label}: host syncs inside a step: {bad}")
+
+
+def check_small_gan() -> None:
+    """One GAN step of the tiny codec configs on the CPU (plain PyTorch) and
+    on the card (cuDNN conv2d, cuFFT; TF32 off), from the same weights and
+    batch, Adam eps 1e-3 on both (the first update is then smooth in the
+    grads, not lr * sign(g)): every metric within 1e-4 relative, and every
+    updated leaf of the generator and the discriminators within 1e-4 of
+    max(|leaf|, 1), a tenth of the lr 1e-3 one update moves a weight by."""
+    from tts_max_tpu_torch.core.config import CodecTrainingConfig
+    from tts_max_tpu_torch.models.codec import discriminator as disc, vocos
+    from tts_max_tpu_torch.training import optim
+    from tts_max_tpu_torch.training.codec import gan
+
+    vcfg, mcfg, scfg = vocos.tiny_vocos_config(), disc.tiny_mpd_config(), disc.tiny_msd_config()
+    cfg = CodecTrainingConfig(generator_lr=1e-3, discriminator_lr=1e-3)
+    gp = vocos.init_decoder(vcfg, seed=4, device="cpu")
+    dp = optim.tree_map(lambda t: t * 5.0, {"mpd": disc.init_mpd(mcfg, 1, "cpu"),
+                                            "msd": disc.init_msd(scfg, 2, "cpu")})
+    rng = np.random.default_rng(7)
+    batch = {"audio_codes": rng.integers(0, 65536, (2, 16)).astype(np.int32),
+             "wav": (0.1 * rng.standard_normal((2, 16 * 320))).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gt, gf = gan.split_generator_params(optim.tree_map(lambda t: t.to(dev), gp))
+        d = optim.tree_map(lambda t: t.to(dev), dp)
+        txs = gan.create_gan_optimizers(cfg)
+        for tx in txs:
+            tx.eps = 1e-3
+        step = gan.make_gan_step(vcfg, mcfg, scfg, cfg, gf, *txs)
+        out[dev] = step(gt, d, txs[0].init(gt), txs[1].init(d),
+                        {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    cpu, card = out["cpu"], out["cuda"]
+    worst_m = max(abs(float(a) - float(b)) / abs(float(b))
+                  for a, b in zip(card[-1], cpu[-1]))
+    worst_p = 0.0
+    for i in (0, 1):
+        ref = dict(optim.tree_items(cpu[i]))
+        for path, t in optim.tree_items(card[i]):
+            r = ref[path]
+            worst_p = max(worst_p, max_err(t.cpu(), r) / max(float(r.abs().max()), 1.0))
+    if not (worst_m <= SMALL_GAN_TOL["metrics"] and worst_p <= SMALL_GAN_TOL["params"]):
+        raise AssertionError(f"small GAN step: card vs CPU metrics {worst_m:.2e} "
+                             f"(tol {SMALL_GAN_TOL['metrics']}), params {worst_p:.2e} "
+                             f"(tol {SMALL_GAN_TOL['params']})")
+    log(f"small GAN step fp32 (tiny Vocos, MPD, MSD), card vs CPU from the same weights: "
+        f"metrics " + " ".join(f"{n} {float(v):.5f}" for n, v in zip(card[-1]._fields, card[-1]))
+        + f"; worst metric {worst_m:.2e} relative (tol {SMALL_GAN_TOL['metrics']}), worst "
+        f"updated leaf {worst_p:.2e} of max(|leaf|, 1) (tol {SMALL_GAN_TOL['params']})")
+
+
+def run_gan(ds: str, dec_path: str, counters) -> dict:
+    """g1: ``python -m tts_max_tpu_torch.training.codec.gan_loop`` (called
+    in-process) at full width: ``VocosConfig()``, ``MPDConfig()``,
+    ``MSDConfig()``, on ``example/configs/codec_training_config.json`` with
+    the dataset (v1's), the output dir and ``save_steps`` changed (batch 8,
+    80-code windows: 1.6 s), from the seeded decoder checkpoint q1 wrote,
+    as written. G1_STEPS steps with a checkpoint and validation every
+    G1_SAVE (the last checkpoint kept). Every loss must be finite, the FSQ
+    quantizer the steps ran with bitwise the checkpoint's, 4 generated
+    and 4 true wavs written finite, ``model_config.json`` must read back,
+    and no host sync may fall inside a step. Returns the launch counts
+    (none: the GAN step runs no Pallas kernel in the JAX package)."""
+    import shutil
+
+    from tts_max_tpu_torch.models.codec import api
+    from tts_max_tpu_torch.training import optim
+    from tts_max_tpu_torch.training.codec import gan, gan_loop
+
+    shutil.rmtree(GAN_DIR, ignore_errors=True)
+    os.makedirs(GAN_DIR)
+    _, frozen = gan.split_generator_params(api.create_decoder(dec_path, device="cpu")._params)
+    with open(GAN_CONFIG) as f:
+        cfg = json.load(f)
+    cfg.update(train_weighted_datasets={ds: 1.0}, output_dir=os.path.join(GAN_DIR, "out"))
+    cfg["checkpointing"].update(save_steps=G1_SAVE, keep_only_last_n_checkpoints=1)
+    path = os.path.join(GAN_DIR, "codec_training_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepProbe(gan, "gan_train_step", G1_TRACED, os.path.join(GAN_DIR, "trace")) \
+            as probe, _WavRecorder(gan_loop) as rec:
+        res = gan_loop.main(["--config_path", path, "--decoder_checkpoint", dec_path,
+                             "--total_steps", str(G1_STEPS), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _counts(counters)
+    _check_counts("g1 GAN", got, _want(counters))
+    out = cfg["output_dir"]
+    losses = [v for _, v, _ in res.steps]
+    if not (len(losses) == G1_STEPS and all(np.isfinite(list(v.values())).all()
+                                            for v in losses)):
+        raise AssertionError(f"g1: losses {losses}")
+    ran, want = dict(optim.tree_items(res.gen_frozen)), dict(optim.tree_items(frozen))
+    same = ran.keys() == want.keys() and all(torch.equal(ran[k].cpu(), want[k]) for k in want)
+    if not same or "quantizer" not in res.gen_frozen or "quantizer" in res.gen_trainable:
+        raise AssertionError("g1: the FSQ quantizer moved")
+    wavs = [os.path.join(out, "quality", f"step_{G1_SAVE}", f"{k}_{i}.wav")
+            for k in ("generated", "true") for i in range(4)]
+    _check_wavs("g1 validation", rec, wavs)
+    dcfg = api.DecoderConfig.from_json(os.path.join(out, "model_config.json"))
+    if dcfg != api.DecoderConfig(sample_rate=16000, token_rate=50, hop_length=320):
+        raise AssertionError(f"g1: model_config.json reads back as {dcfg}")
+    if os.listdir(os.path.join(out, "checkpoints")) != [str(G1_STEPS)]:
+        raise AssertionError(f"g1: checkpoints {os.listdir(os.path.join(out, 'checkpoints'))}")
+    probe.check_no_sync("g1")
+    secs = [s for _, _, s in res.steps]
+    ms = 1e3 * float(np.median([s for i, s in enumerate(secs[1:], 2) if i != G1_TRACED]))
+    log(f"  g1 GAN (gan_loop on {os.path.relpath(GAN_CONFIG)}: Vocos 1024 x 12, MPD periods "
+        f"2/3/5/7/11, MSD 8 resolutions, batch {cfg['training']['batch_size']} x "
+        f"{cfg['codec']['code_window_size']} codes; changed: dataset -> v1's, output_dir, "
+        f"save_steps 500 -> {G1_SAVE}, keep 5 -> 1; from q1's seeded decoder checkpoint) "
+        f"{G1_STEPS} steps in {wall:.1f} s: ms/step (median of steps 2-{G1_STEPS} but the "
+        f"traced {G1_TRACED}, each to its loss read) {ms:.1f}; step seconds "
+        + " ".join(f"{s:.3f}" for s in secs)
+        + f"; peak torch.cuda.max_memory_allocated {peak / 2 ** 30:.2f} GiB; checkpoint "
+        f"({_gib(os.path.join(out, 'checkpoints')):.2f} GiB) seconds "
+        + " ".join(f"{s:.2f}" for s in res.checkpoint_seconds) + ", with validation "
+        + " ".join(f"{s:.2f}" for s in res.save_seconds) + "; "
+        f"losses gen " + " ".join(f"{v['gen']:.3f}" for v in losses) + "; disc "
+        + " ".join(f"{v['disc']:.3f}" for v in losses) + "; mel "
+        + " ".join(f"{v['mel']:.3f}" for v in losses)
+        + f"; no host sync inside a step; {probe.busy_line(ms)}; quantizer bitwise the "
+        f"checkpoint's; "
+        f"4 + 4 wavs finite; {gpu_line()}")
+    shutil.rmtree(GAN_DIR)
+    return got
+
+
+def run_hf_sft(model_dir: str, counters) -> dict:
+    """h1: ``training.main`` with ``modeling.parameters.model_name`` set to
+    an HF directory at Llama-3.2-1B width (the BF16 dir s1 served, with the
+    repository's Llama-3-style fixture ``tokenizer.json`` copied in), on
+    ``example/configs/sft.json`` with the SFT path's seeded data, H1_STEPS
+    optimizer steps (the first warms up, the second is traced, the median of
+    the rest is ms/step). The tokenizer, extended to the fixed 193856 ids
+    (190k added tokens), must give the fixture's golden ids; A and A' run as
+    in the SFT path; the losses are finite. Returns the launch counts."""
+    import shutil
+
+    from tts_max_tpu_torch.core import hf_tokenizer
+    from tts_max_tpu_torch.models import hf_import
+    from tts_max_tpu_torch.training import main as train_main, train_step as ts
+
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(TOKENIZER_FIXTURE, name), model_dir)
+    h1_dir = os.path.join(os.path.dirname(TRAIN_DIR), "chip_smoke_h1")
+    path, cfg, changes, data = write_sft_config(h1_dir)
+    cfg["modeling"]["parameters"]["model_name"] = model_dir
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    built, encodes = {}, []
+    build, encode = train_main.build_tokenizer, hf_tokenizer.HFTokenizer.encode
+
+    def record_build(*a, **kw):
+        t = time.perf_counter()
+        built["tok"] = build(*a, **kw)
+        built["s"] = time.perf_counter() - t
+        return built["tok"]
+
+    def timed_encode(self, text, *a, **kw):
+        t = time.perf_counter()
+        ids = encode(self, text, *a, **kw)
+        encodes.append((time.perf_counter() - t, len(ids)))
+        return ids
+
+    train_main.build_tokenizer, hf_tokenizer.HFTokenizer.encode = record_build, timed_encode
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with StepProbe(ts, "train_step", H1_TRACED, os.path.join(h1_dir, "trace")) as probe:
+            res = train_main.main(["--config_path", path, "--total_steps", str(H1_STEPS)])
+    finally:
+        train_main.build_tokenizer, hf_tokenizer.HFTokenizer.encode = build, encode
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _counts(counters)
+    tok, build_s = built["tok"], built["s"]
+    with open(os.path.join(TOKENIZER_FIXTURE, "golden.json")) as f:
+        golden = json.load(f)
+    bad = [s for s, ids in golden["ids"].items() if tok.encode(s) != ids]
+    if bad or len(tok) != golden["vocab_size"] or tok.pad_token_id != golden["pad_token_id"]:
+        raise AssertionError(f"h1: tokenizer {len(tok)} ids, pad {tok.pad_token_id}; golden "
+                             f"strings with other ids: {bad}")
+    losses = [m.loss for _, m, _, _ in res.steps]
+    if not (len(losses) == H1_STEPS and np.isfinite(losses).all()):
+        raise AssertionError(f"h1 losses {losses}")
+    L = hf_import.config_from_hf(model_dir).n_layers
+    eval_batches = 4 // cfg["training"]["batch_size"]
+    _check_counts("h1 SFT from an HF dir", got, _want(
+        counters, flash_attention=L * (2 * H1_STEPS + eval_batches),
+        flash_attention_bwd=L * H1_STEPS))
+    enc_s = sum(s for s, _ in encodes)
+    secs = [s for _, _, s, _ in res.steps]
+    ms = 1e3 * float(np.median(secs[H1_TRACED:]))
+    log(f"  h1 SFT from an HF dir ({os.path.relpath(model_dir)}: Llama-3.2-1B geometry, BF16, "
+        f"vocab 193856, with the fixture tokenizer.json) through training.main, "
+        f"{H1_STEPS} steps in {wall:.1f} s: tokenizer built in {build_s:.2f} s "
+        f"({len(tok)} ids, {len(tok) - len(tok.vocab)} added tokens), golden ids equal; "
+        f"{len(encodes)} encodes while the datasets were built, "
+        f"{len(encodes) / enc_s:.1f} samples/s ({sum(n for _, n in encodes) / enc_s:.0f} "
+        f"tokens/s); losses " + " ".join(f"{x:.4f}" for x in losses)
+        + f"; step seconds " + " ".join(f"{s:.3f}" for s in secs)
+        + f" (ms/step, median of steps {H1_TRACED + 1}-{H1_STEPS}, {ms:.1f}); peak "
+        f"torch.cuda.max_memory_allocated {peak / 2 ** 30:.2f} GiB; "
+        f"{probe.busy_line(ms)}; "
+        f"launches {got}")
+    shutil.rmtree(h1_dir)
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -3111,6 +3411,7 @@ def main() -> int:
     check_small_engine(tok, sv)
     check_small_encoder()
     check_small_train()
+    check_small_gan()
     counters = [flash_attention, flash_attention_bwd, flash_decode_attention,
                 ragged_decode_attention, paged_decode_attention_dense,
                 paged_decode_attention_dma, paged_decode_attention, activation1d_kernel,
@@ -3134,6 +3435,8 @@ def main() -> int:
     t_tr = time.perf_counter()
     trained = run_training(counters, validation=q1)
     log(f"  SFT path wall {time.perf_counter() - t_tr:.1f} s")
+    phase("g1 codec GAN")
+    add_chain(run_gan(ds, q1[0], counters))
     shutil.rmtree(os.path.dirname(q1[0]))  # the codec checkpoints
     phase("c1 convert and serve")
     hf_dir, got, trained_params = run_convert_and_serve(os.path.join(TRAIN_DIR, "out"),
@@ -3174,6 +3477,10 @@ def main() -> int:
     phase("serving CLIs")
     for name, n in run_serving(tok, sv, params, cfg, counters).items():
         launches[name] += n
+    phase("h1 SFT from an HF directory")
+    for name, n in run_hf_sft(os.path.join(SERVING_DIR, "model"), counters).items():
+        launches[name] += n
+    shutil.rmtree(SERVING_DIR)
     phase("done")
     log(f"launch counts summed over the main paths: {launches}")
 

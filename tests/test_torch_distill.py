@@ -6,11 +6,15 @@ ragged masks, with a chunk that divides S - 1 and one that does not; one
 ``make_distill_step`` against JAX's jitted step under ``optax.adamw`` (loss,
 grad norm and the updated draft); a short distillation that lowers the KL;
 and ``python -m tts_max_tpu_torch.tools.distill_draft`` on the CPU, whose
-draft dir loads through ``hf_import``."""
+draft dir loads through ``hf_import``; with ``--model_dir`` the tool reads
+the dir's ``tokenizer.json`` (JAX's ``build_tokenizer`` with no padding
+ids), falls back to the byte tokenizer only when the dir has none, and
+raises on a malformed one."""
 
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -194,3 +198,43 @@ def test_distill_draft_end_to_end(tmp_path):
     with open(os.path.join(out, "config.json")) as f:
         assert json.load(f)["num_hidden_layers"] == 1
     assert params["layers"]["attn"]["wq"]["kernel"].shape[0] == 1
+
+
+def test_distill_draft_reads_the_model_dirs_tokenizer(tmp_path, setup, monkeypatch):
+    from tts_max_tpu.core.tokenization import build_tokenizer as jbuild
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                           "llama3_style_tokenizer")
+    data = str(tmp_path / "ds")
+    _dataset(data)
+    vocab = 695 + 65544  # the fixture's ids and the speech vocabulary, no padding ids
+    _, pcfg, _, _ = setup
+    cfg = dataclasses.replace(pcfg, vocab_size=vocab, n_layers=2)
+    model_dir = str(tmp_path / "target")
+    hf_import.save_model_to_hf_dir(llama.init_params(cfg, seed=0, device="cpu"), cfg,
+                                   model_dir)
+    seen = []
+    dataset = distill_draft.TtsFineTuningDataset
+
+    def record(name, samples, codes, spans, tokenizer, **kw):
+        seen.append(tokenizer)
+        return dataset(name, samples, codes, spans, tokenizer, **kw)
+
+    monkeypatch.setattr(distill_draft, "TtsFineTuningDataset", record)
+    argv = ["--dataset_dir", data, "--model_dir", model_dir, "--draft_layers", "1",
+            "--steps", "1", "--batch", "2", "--seq", "64", "--chunk", "32", "--device", "cpu"]
+    # no tokenizer.json: the byte tokenizer, as serving dirs carry none
+    distill_draft.main(argv + ["--output_dir", str(tmp_path / "d0")])
+    assert len(seen[-1]) == 65806 and seen[-1].pad_token_id == 0
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(fixture, name), model_dir)
+    res = distill_draft.main(argv + ["--output_dir", str(tmp_path / "d1")])
+    ref, tok = jbuild(model_dir, expected_vocab_size=None), seen[-1]
+    assert len(tok) == len(ref) == vocab and tok.pad_token_id == ref.pad_token_id == 692
+    prompt = "<|text_prompt_start|>hello number 3<|text_prompt_end|><|s_5|><|s_65535|>"
+    assert tok.encode(prompt) == ref.encode(prompt)
+    assert np.isfinite(res.kl).all() and res.draft_cfg.vocab_size == vocab
+    with open(os.path.join(model_dir, "tokenizer.json"), "w") as f:
+        f.write("{not json")
+    with pytest.raises(json.JSONDecodeError):
+        distill_draft.main(argv + ["--output_dir", str(tmp_path / "d2")])

@@ -611,3 +611,69 @@ def test_distill_step_on_the_card_matches_the_cpu():
     assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
     assert float(loss) == pytest.approx(results["cpu"][0], rel=1e-5)
     assert not torch.equal(new["embed"]["embedding"], draft["embed"]["embedding"])
+
+
+@pytest.mark.gpu
+def test_stft_and_mel_on_the_card_match_the_cpu():
+    """``stft`` (a window shorter than n_fft, the largest MSD resolution)
+    and ``mel_spectrogram`` at the GAN mel loss's widest and narrowest
+    resolutions, cuFFT against the CPU's FFT: within 1e-5 of the largest
+    magnitude; the cached windows and filter banks live on the card."""
+    from tts_max_tpu_torch.device import full_fp32
+    from tts_max_tpu_torch.ops import stft
+
+    _cuda()
+    full_fp32()
+    x = torch.randn(2, 25600, generator=torch.Generator().manual_seed(0)) * 0.3
+    cases = [lambda t: stft.stft(t, 1024, 120, 600), lambda t: stft.stft(t, 2296, 1148, 2296),
+             lambda t: stft.mel_spectrogram(t, 16000, 32, 8, 5),
+             lambda t: stft.mel_spectrogram(t, 16000, 2048, 512, 320)]
+    for fn in cases:
+        ref, out = fn(x), fn(x.cuda())
+        assert out.device.type == "cuda"
+        assert (out.cpu() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.gpu
+def test_gan_step_on_the_card_matches_the_cpu():
+    """One GAN step of the tiny codec configs on the card (cuDNN conv2d,
+    cuFFT, TF32 off) and on the CPU from the same weights and batch, Adam
+    eps 1e-3 on both (as tests/test_torch_gan.py, so the first update is
+    smooth in the grads): every metric within 1e-4 relative, every updated
+    leaf within 1e-4 of max(|leaf|, 1) (one update moves a weight by up to
+    lr = 1e-3)."""
+    import numpy as np
+
+    from tts_max_tpu_torch.core.config import CodecTrainingConfig
+    from tts_max_tpu_torch.device import full_fp32
+    from tts_max_tpu_torch.models.codec import discriminator as disc, vocos
+    from tts_max_tpu_torch.training import optim
+    from tts_max_tpu_torch.training.codec import gan
+
+    _cuda()
+    full_fp32()
+    vcfg, mcfg, scfg = vocos.tiny_vocos_config(), disc.tiny_mpd_config(), disc.tiny_msd_config()
+    cfg = CodecTrainingConfig(generator_lr=1e-3, discriminator_lr=1e-3)
+    gp = vocos.init_decoder(vcfg, seed=4, device="cpu")
+    dp = optim.tree_map(lambda t: t * 5.0, {"mpd": disc.init_mpd(mcfg, 1, "cpu"),
+                                            "msd": disc.init_msd(scfg, 2, "cpu")})
+    rng = np.random.default_rng(7)
+    batch = {"audio_codes": rng.integers(0, 65536, (2, 16)).astype(np.int32),
+             "wav": (0.1 * rng.standard_normal((2, 16 * 320))).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gt, gf = gan.split_generator_params(optim.tree_map(lambda t: t.to(dev), gp))
+        d = optim.tree_map(lambda t: t.to(dev), dp)
+        txs = gan.create_gan_optimizers(cfg)
+        for tx in txs:
+            tx.eps = 1e-3
+        step = gan.make_gan_step(vcfg, mcfg, scfg, cfg, gf, *txs)
+        out[dev] = step(gt, d, txs[0].init(gt), txs[1].init(d),
+                        {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    for a, b in zip(out["cuda"][-1], out["cpu"][-1]):
+        assert bool(torch.isfinite(a)) and float(a) == pytest.approx(float(b), rel=1e-4)
+    for i in (0, 1):
+        ref = dict(optim.tree_items(out["cpu"][i]))
+        for path, t in optim.tree_items(out["cuda"][i]):
+            r = ref[path]
+            assert (t.cpu() - r).abs().max() <= 1e-4 * max(float(r.abs().max()), 1.0), path

@@ -1,6 +1,6 @@
 """The port stands alone: it imports no JAX (nor ``optax`` or ``orbax``),
-nothing of ``tts_max_tpu``, no ``transformers`` and no ``safetensors`` (the
-card's machine has none of them), and nothing of the repository's ``tools`` package (its CLIs are
+nothing of ``tts_max_tpu``, no ``transformers``, ``tokenizers``, ``regex``
+or ``safetensors`` (the card's machine has none of them), and nothing of the repository's ``tools`` package (its CLIs are
 JAX's; the port has its own in ``tts_max_tpu_torch/tools``); nor do the
 scripts that drive it on the card (``chip_smoke.py``,
 ``tools/profile_torch_synthesis.py``)."""
@@ -15,7 +15,8 @@ PKG = ROOT / "tts_max_tpu_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
-_BLOCKED = rf"(?:jax\b|optax\b|orbax\b|transformers\b|safetensors\b|tools\b|{_JAX_PKG})"
+_BLOCKED = (rf"(?:jax\b|optax\b|orbax\b|transformers\b|tokenizers\b|regex\b|safetensors\b"
+            rf"|tools\b|{_JAX_PKG})")
 _IMPORT = re.compile(rf"^\s*(?:import\s+{_BLOCKED}|from\s+{_BLOCKED}[\s.])", re.MULTILINE)
 
 
@@ -43,6 +44,10 @@ def test_import_regex_tells_the_packages_apart():
     assert _IMPORT.search("import tools.serve_batch")
     assert not _IMPORT.search("from tts_max_tpu_torch.tools import serve_batch")
     assert not _IMPORT.search("import toolsmith")
+    assert _IMPORT.search("import regex")
+    assert _IMPORT.search("    from tokenizers import Tokenizer")
+    assert not _IMPORT.search("import re")
+    assert not _IMPORT.search("import regex_lite")
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
@@ -51,7 +56,11 @@ def test_no_jax_or_reference_package_imports_in_sources():
             "data_merger.py", "convert_checkpoint.py", "distill_draft.py",
             "quant_quality.py"} <= {p.name for p in scanned if p.parent == PKG / "tools"}
     assert {PKG / "models" / "lora.py", PKG / "training" / "distill.py",
-            PKG / "inference" / "quality.py"} <= set(scanned)
+            PKG / "inference" / "quality.py", PKG / "core" / "hf_tokenizer.py",
+            PKG / "utils" / "profiling.py", PKG / "models" / "codec" / "discriminator.py",
+            PKG / "models" / "codec" / "losses.py", PKG / "training" / "codec" / "gan.py",
+            PKG / "training" / "codec" / "gan_loop.py",
+            PKG / "training" / "codec" / "codec_data.py"} <= set(scanned)
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in scanned
@@ -62,7 +71,8 @@ def test_no_jax_or_reference_package_imports_in_sources():
 
 def test_every_module_imports_without_jax():
     """In a fresh interpreter where ``import jax``, ``import transformers``,
-    ``import safetensors`` and the repository's ``import tools`` fail, every
+    ``import tokenizers``, ``import regex``, ``import safetensors`` and the
+    repository's ``import tools`` fail, every
     module of the port and both scripts import, and no ``tts_max_tpu``
     module gets loaded."""
     mods = list(_modules())
@@ -74,6 +84,8 @@ def test_every_module_imports_without_jax():
         "sys.modules['optax'] = None\n"
         "sys.modules['orbax'] = None\n"
         "sys.modules['transformers'] = None\n"
+        "sys.modules['tokenizers'] = None\n"
+        "sys.modules['regex'] = None\n"
         "sys.modules['safetensors'] = None\n"
         "sys.modules['tools'] = None\n"
         f"for m in {mods!r}:\n"
@@ -83,7 +95,8 @@ def test_every_module_imports_without_jax():
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'tts_max_tpu'"
         " or m.startswith('tts_max_tpu.')"
-        " or m in ('jax', 'optax', 'orbax', 'transformers', 'safetensors', 'tools')"
+        " or m in ('jax', 'optax', 'orbax', 'transformers', 'tokenizers', 'regex',"
+        " 'safetensors', 'tools')"
         " and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"

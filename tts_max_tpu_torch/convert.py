@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from tts_max_tpu_torch.device import resolve_device
+from tts_max_tpu_torch.models.codec.discriminator import MPDConfig, MSDConfig
 from tts_max_tpu_torch.models.codec.encoder import EncoderConfig
 from tts_max_tpu_torch.models.codec.vocos import VocosConfig
 from tts_max_tpu_torch.models.codec.w2vbert import W2VBertConfig
@@ -105,4 +106,38 @@ def w2vbert_from_numpy(tree, cfg: W2VBertConfig, device="cuda"):
            (cfg.num_layers, cfg.hidden_size, cfg.hidden_size))
     _check("distance embedding", params["layers"]["attn"]["distance_embedding"],
            (cfg.num_layers, cfg.num_distance_embeddings, cfg.head_size))
+    return params
+
+
+def _conv2d_tree(tree, device):
+    """fp32, with 4-D conv kernels permuted [kh, kw, Cin, Cout] -> [Cout, Cin, kh, kw]."""
+    dev = resolve_device(device)
+
+    def leaf(a, key):
+        t = torch.from_numpy(a.astype(np.float32))
+        return (t.permute(3, 2, 0, 1) if key == "kernel" else t).contiguous().to(dev)
+
+    return _tree(tree, leaf)
+
+
+def mpd_from_numpy(tree, cfg: MPDConfig, device="cuda"):
+    """Multi-period discriminator parameters (a list, one per period)."""
+    params = _conv2d_tree(tree, device)
+    if len(params) != len(cfg.periods):
+        raise ValueError(f"{len(params)} period discriminators, config has "
+                         f"{len(cfg.periods)}")
+    _check("first period conv kernel", params[0]["convs"][0]["kernel"],
+           (cfg.channels, 1, cfg.kernel_sizes[0], 1))
+    return params
+
+
+def msd_from_numpy(tree, cfg: MSDConfig, device="cuda"):
+    """Multi-resolution spectral discriminator parameters (a list, one per
+    resolution)."""
+    params = _conv2d_tree(tree, device)
+    if len(params) != len(cfg.fft_sizes):
+        raise ValueError(f"{len(params)} spectral discriminators, config has "
+                         f"{len(cfg.fft_sizes)}")
+    _check("first spectral conv kernel", params[0]["layers"][0]["kernel"],
+           (cfg.channels, 1, cfg.kernel_sizes[0], cfg.kernel_sizes[0]))
     return params

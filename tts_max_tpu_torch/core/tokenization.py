@@ -12,10 +12,14 @@ tokens are added via ``add_tokens(sorted(new_tokens))`` (NOTE:
   pipeline runs air-gapped (no HF download). The JAX package's optional C++
   encoder is not carried over: this is its pure-Python path, which gives the
   same ids.
+- ``build_tokenizer``: an HF directory's ``tokenizer.json`` (Llama 3's
+  byte-level BPE), read by the port's own ``core/hf_tokenizer.py`` where the
+  JAX package calls ``transformers.AutoTokenizer``.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from dataclasses import dataclass
 
@@ -176,6 +180,28 @@ def extend_tokenizer(
                 f"Expected tokenizer size {expected_vocab_size}, got {len(tokenizer)}"
             )
     return tokenizer
+
+
+def build_tokenizer(
+    model_dir: str,
+    max_seq_len: int = 2048,
+    codebook_size: int = constants.CODEBOOK_SIZE,
+    expected_vocab_size: int | None = constants.FIXED_VOCAB_SIZE,
+):
+    """An HF directory's tokenizer (its ``tokenizer.json`` and
+    ``tokenizer_config.json``, read by the port's ``HFTokenizer``) with
+    ``pad_token = eos_token``, extended with the speech vocabulary: the ids
+    ``transformers.AutoTokenizer`` and ``extend_tokenizer`` give, without
+    ``transformers``. A dir without ``tokenizer.json`` raises
+    ``FileNotFoundError``, an unsupported file ``ValueError``."""
+    from tts_max_tpu_torch.core.hf_tokenizer import HFTokenizer
+
+    if not os.path.isfile(os.path.join(model_dir, "tokenizer.json")):
+        raise FileNotFoundError(f"{model_dir} has no tokenizer.json")
+    tokenizer = HFTokenizer.from_dir(model_dir)
+    tokenizer.model_max_length = max_seq_len
+    tokenizer.pad_token = tokenizer.eos_token
+    return extend_tokenizer(tokenizer, codebook_size, expected_vocab_size)
 
 
 def build_byte_tokenizer(

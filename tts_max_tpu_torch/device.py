@@ -8,6 +8,9 @@ it with ``device="cpu"`` (the tests do).
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 
@@ -34,3 +37,25 @@ def full_fp32() -> None:
     when they are built."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def to_device_async(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``: on the card through pinned memory, so
+    that the copy does not wait for the host (no sync); on the CPU as is."""
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+def cached_constant(make):
+    """``make(*key)`` (a numpy array or a host tensor) as a function
+    ``(device, *key) -> tensor on device``, made once for each device and
+    key: outside inference mode, so that a training step may save it for
+    its backward, and copied with ``to_device_async``."""
+
+    @functools.lru_cache(maxsize=64)
+    @torch.inference_mode(False)
+    def get(device: torch.device, *key) -> torch.Tensor:
+        a = make(*key)
+        t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+        return to_device_async(t, device)
+
+    return get

@@ -23,8 +23,9 @@ from tts_max_tpu_torch.models.codec import torch_import, vocos
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """Serving decoder config, read from ``model_config.json`` (a missing
-    ``model_type`` key defaults to "vocos")."""
+    """Serving decoder config, read from and written to
+    ``model_config.json`` (a missing ``model_type`` key defaults to
+    "vocos")."""
 
     sample_rate: int = 16000
     token_rate: int = 50
@@ -46,6 +47,19 @@ class DecoderConfig:
             kernel_sizes=tuple(d["kernel_sizes"]) if d.get("kernel_sizes") else None,
             model_type=d.get("model_type", "vocos"),
         )
+
+    def to_json(self, path: str) -> None:
+        """``model_config.json`` with the JAX package's keys and layout."""
+        with open(path, "w") as f:
+            json.dump({
+                "sample_rate": self.sample_rate,
+                "token_rate": self.token_rate,
+                "hop_length": self.hop_length,
+                "upsample_factors": list(self.upsample_factors)
+                if self.upsample_factors else None,
+                "kernel_sizes": list(self.kernel_sizes) if self.kernel_sizes else None,
+                "model_type": self.model_type,
+            }, f, indent=2)
 
     def vocos_config(self) -> vocos.VocosConfig:
         return vocos.VocosConfig(

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from tts_max_tpu_torch.core.constants import FSQ_LEVELS
+from tts_max_tpu_torch.device import cached_constant
 
 
 @dataclass(frozen=True)
@@ -52,9 +53,13 @@ def init_params(cfg: FSQConfig, gen: torch.Generator, device) -> dict:
     }
 
 
+# a small constant (values, dtype) on a device, made once
+_on = cached_constant(lambda values, dtype: torch.tensor(values, dtype=dtype))
+
+
 def bound(z: torch.Tensor, cfg: FSQConfig) -> torch.Tensor:
     """tanh-bound each dim into its level range (FSQ paper eq. 4)."""
-    levels = torch.as_tensor(cfg.levels, dtype=torch.float32, device=z.device)
+    levels = _on(z.device, tuple(cfg.levels), torch.float32)
     half_l = (levels - 1) * (1 + cfg.eps) / 2
     offset = torch.where(levels % 2 == 0, 0.5, 0.0)
     shift = torch.atanh(offset / half_l)
@@ -68,16 +73,16 @@ def quantize_codes(z: torch.Tensor, cfg: FSQConfig) -> torch.Tensor:
     form, kept for its rounding."""
     bounded = bound(z, cfg)
     quantized = bounded + (torch.round(bounded) - bounded)
-    half_width = torch.as_tensor(cfg.levels, dtype=torch.float32, device=z.device) // 2
+    half_width = _on(z.device, tuple(cfg.levels), torch.float32) // 2
     return quantized / half_width
 
 
 def codes_to_indices(codes: torch.Tensor, cfg: FSQConfig) -> torch.Tensor:
     """Normalized codes [..., cd] -> int32 indices [...], through a float
     sum that is rounded (as the JAX package computes them)."""
-    half_width = torch.as_tensor(cfg.levels, dtype=torch.float32, device=codes.device) // 2
+    half_width = _on(codes.device, tuple(cfg.levels), torch.float32) // 2
     digits = codes * half_width + half_width  # in [0, level-1]
-    basis = torch.as_tensor(_basis(cfg), dtype=torch.float32, device=codes.device)
+    basis = _on(codes.device, tuple(_basis(cfg).tolist()), torch.float32)
     return torch.round(torch.sum(digits * basis, dim=-1)).to(torch.int32)
 
 
@@ -93,8 +98,8 @@ def encode(params, x: torch.Tensor, cfg: FSQConfig) -> tuple[torch.Tensor, torch
 
 def indices_to_codes(indices: torch.Tensor, cfg: FSQConfig) -> torch.Tensor:
     """Integer indices [...] -> normalized codes [..., codebook_dim] in [-1, 1]."""
-    basis = torch.as_tensor(_basis(cfg), device=indices.device)
-    levels = torch.as_tensor(cfg.levels, dtype=torch.int64, device=indices.device)
+    basis = _on(indices.device, tuple(_basis(cfg).tolist()), torch.int64)
+    levels = _on(indices.device, tuple(cfg.levels), torch.int64)
     digits = (indices.long()[..., None] // basis) % levels
     half_width = (levels // 2).float()
     return (digits.float() - half_width) / half_width

@@ -14,8 +14,9 @@ written as an HF dir that serving loads beside the target
 
 The target is an HF dir (``--model_dir``, read through ``hf_import`` in
 bf16), or seeded random bf16 weights of ``--architecture`` (smoke mode).
-The tokenizer is the byte tokenizer: the HF-dir tokenizer reader is not
-ported, and serving dirs may carry no tokenizer files anyway. Batches are
+The tokenizer is the dir's own (``tokenizer.json``, extended with the
+speech vocabulary and no padding ids) where it has one, else the byte
+tokenizer: serving dirs may carry no tokenizer files. Batches are
 drawn with ``np.random.default_rng(--seed)`` as in the JAX tool. The
 optimizer is ``optax.adamw(lr, b1=0.9, b2=0.95, weight_decay=0.01,
 mu_dtype=bf16)``: ``training/optim.AdamW`` has its eps (1e-8) and decays
@@ -34,10 +35,10 @@ import numpy as np
 import torch
 
 from tts_max_tpu_torch.core.config import DatasetConfig
-from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer
+from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer, build_tokenizer
 from tts_max_tpu_torch.data import codes_io
 from tts_max_tpu_torch.data.datasets import TtsFineTuningDataset
-from tts_max_tpu_torch.device import resolve_device
+from tts_max_tpu_torch.device import resolve_device, to_device_async
 from tts_max_tpu_torch.models import hf_import, llama
 from tts_max_tpu_torch.training import distill
 from tts_max_tpu_torch.training.optim import AdamW
@@ -82,6 +83,9 @@ def main(argv=None) -> DistillResult:
     dtype = torch.bfloat16
 
     tokenizer = build_byte_tokenizer()
+    if args.model_dir and os.path.isfile(os.path.join(args.model_dir, "tokenizer.json")):
+        # a malformed or unsupported tokenizer.json raises: no silent byte ids
+        tokenizer = build_tokenizer(args.model_dir, expected_vocab_size=None)
     if args.model_dir and os.path.isdir(args.model_dir):
         params, cfg = hf_import.load_model_from_hf_dir(args.model_dir, device=device,
                                                        dtype=dtype)
@@ -101,8 +105,7 @@ def main(argv=None) -> DistillResult:
     pad_id = tokenizer.pad_token_id or 0
 
     def to_device(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)  # pinned, so that the copy does not wait for the card
-        return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+        return to_device_async(torch.from_numpy(a), device)
 
     def make_batch(rng):
         idxs = rng.integers(0, len(ds), args.batch)

@@ -35,6 +35,8 @@ FINAL_MODEL_FILE = "model.safetensors"
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
     return tree.detach().cpu() if torch.is_tensor(tree) else tree
 
 
@@ -42,6 +44,8 @@ def _like(template, loaded):
     """``loaded`` moved onto each template leaf's device (dtypes as saved)."""
     if isinstance(template, dict):
         return {k: _like(v, loaded[k]) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [_like(v, w) for v, w in zip(template, loaded, strict=True)]
     if torch.is_tensor(template):
         if loaded.shape != template.shape:
             raise ValueError(f"checkpoint leaf {tuple(loaded.shape)} does not match "

@@ -3,10 +3,11 @@
     python -m tts_max_tpu_torch.training.main --config_path cfg.json \\
         [--dry_run] [--pretraining_mode] [--total_steps N] [--device cuda|cpu]
 
-config -> byte tokenizer and seeded weights -> weighted datasets and loaders
--> steps math -> cosine schedule and AdamW -> optional dry-run step -> loop
-(eval, checkpoints with quality validation, resume) -> final model. It runs
-on one device, the card unless ``--device cpu`` is given.
+config -> tokenizer and weights (an HF directory's, or the byte tokenizer and
+seeded weights of an architecture) -> weighted datasets and loaders -> steps
+math -> cosine schedule and AdamW -> optional dry-run step -> loop (eval,
+checkpoints with quality validation, resume) -> final model. It runs on one
+device, the card unless ``--device cpu`` is given.
 
 Quality validation (``checkpointing.validation_type`` "random_phrases" or
 "prompt_continuation", with ``--codec_decoder_checkpoint`` and
@@ -14,10 +15,8 @@ Quality validation (``checkpointing.validation_type`` "random_phrases" or
 the training params after each checkpoint (``inference/quality.py``);
 ``--validation_prompt_wavs`` takes ``wav_path:transcript`` pairs.
 
-Not ported yet: the HF-directory branch of ``build_model_and_tokenizer``
-(its ``tokenizer.json`` reader, the head of ROADMAP.md queue 1, item 1b's
-remainder) and any mesh of more than one device (queue 1 item 4); each
-raises.
+Not ported yet: any mesh of more than one device (ROADMAP.md queue 1 item
+4); it raises.
 """
 
 from __future__ import annotations
@@ -33,13 +32,13 @@ from typing import NamedTuple
 import torch
 
 from tts_max_tpu_torch.core.config import ExperimentConfig, Strategy
-from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer
+from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer, build_tokenizer
 from tts_max_tpu_torch.data import builder
 from tts_max_tpu_torch.data.collate import collate
 from tts_max_tpu_torch.data.loader import DataLoader
 from tts_max_tpu_torch.data.normalization import create as create_normalizer
 from tts_max_tpu_torch.device import resolve_device
-from tts_max_tpu_torch.models import llama
+from tts_max_tpu_torch.models import hf_import, llama
 from tts_max_tpu_torch.training import optim, train_step as ts
 from tts_max_tpu_torch.training.checkpointing import (
     CheckpointManager,
@@ -68,18 +67,22 @@ class TrainResult(NamedTuple):
 def build_model_and_tokenizer(config: ExperimentConfig, device="cuda"):
     """Tokenizer, fp32 params on ``device`` and model config.
 
-    A local HF directory as ``model_name`` needs the port's own
-    ``tokenizer.json`` reader, the head of ROADMAP.md queue 1 (item 1b's
-    remainder); otherwise the named architecture with the air-gapped byte
-    tokenizer and weights drawn by the port's seeded ``init_params``
-    (torch's generator, so not JAX's numbers) is the from-scratch path."""
+    A local HF directory as ``model_name`` (a Llama 3 checkpoint) gives its
+    own tokenizer (``tokenizer.json``, read by the port's
+    ``core/hf_tokenizer.py``), extended to ``vocab_size``, and its weights
+    with the embedding resized to that tokenizer; otherwise the named
+    architecture with the air-gapped byte tokenizer and weights drawn by the
+    port's seeded ``init_params`` (torch's generator, so not JAX's numbers)
+    is the from-scratch path."""
     mp = config.modeling.parameters
     if os.path.isdir(mp.model_name):
-        raise NotImplementedError(
-            f"model_name {mp.model_name!r} is an HF directory: its tokenizer.json "
-            "reader is not ported yet (the head of ROADMAP.md queue 1, item 1b's "
-            "remainder); set model_name to a name that is not a directory to train "
-            "from scratch with modeling.parameters.architecture")
+        tokenizer = build_tokenizer(mp.model_name, mp.max_seq_len, mp.codebook_size,
+                                    expected_vocab_size=mp.vocab_size)
+        params, cfg = hf_import.load_model_from_hf_dir(
+            mp.model_name, vocab_size=len(tokenizer), device=device, dtype=torch.float32)
+        # fp32 weights, as JAX's import reads them; the config's compute dtype
+        cfg = dataclasses.replace(cfg, dtype=hf_import.config_from_hf(mp.model_name).dtype)
+        return tokenizer, params, cfg
     arch = mp.architecture or "llama-tiny"
     tokenizer = build_byte_tokenizer(mp.codebook_size)
     cfg = llama.config_for_architecture(

@@ -48,10 +48,14 @@ def constant_schedule(learning_rate: float):
 
 
 def tree_items(tree, prefix=""):
-    """("a/b/c" path, tensor) pairs of a nested dict, in sorted key order."""
+    """("a/b/c" path, tensor) pairs of nested dicts (in sorted key order) and
+    lists (in order, the index as the key)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_items(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
 
@@ -63,6 +67,8 @@ def tree_leaves(tree) -> list[torch.Tensor]:
 def tree_map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
