@@ -10,8 +10,9 @@ printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``):
 kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
 1 and 8, kv_len < S, n_rep 1 and 8), kernel A' (attention's backward, for
 training: SFT's layer at batch 4 x 2048, fp32, D = 128, a tail, kv_len < S,
-n_rep 1, a sharp softmax, a ragged S = 130, batch 8 and draft distillation's
-layer at batch 8 x 512, beside SDPA's backward;
+n_rep 1, a sharp softmax, a ragged S = 130, batch 8, draft distillation's
+layer at batch 8 x 512, the LoRA step's and the GRPO update's (at batch 2
+x 3072; A at r1's 8 x 3072), beside SDPA's backward;
 its library's SASS must hold tensor-core and cp.async instructions; and A
 with its log-sum-exp and residual writes beside A without them), kernel B
 (contiguous decode), kernel C (ragged decode,
@@ -31,7 +32,9 @@ path against its CPU path on a small model, through ``generate`` (also
 quantized: int8 and int4-g64, greedy ids) and through the paged engine
 under each paged entry point, on a small codec encoder, through one fp32
 train step (kernels A and A' against the plain versions: loss, every grad,
-the updated params) and through one tiny GAN step (cuDNN conv2d, cuFFT). Then it trains Llama-3.2-1B at full width through the
+the updated params), through one tiny GAN step (cuDNN conv2d, cuFFT) and
+through the RLHF slice's small checks (a GRPO loss, its grads and one step;
+a small Whisper's greedy tokens; a DNSMOS-shaped ONNX graph). Then it trains Llama-3.2-1B at full width through the
 SFT entry point (``tts_max_tpu_torch.training.main`` on
 ``example/configs/sft.json``, 8 steps on a seeded dataset the port's
 ``codes_io`` writes, a checkpoint, the final model, a one-step resume), and
@@ -68,7 +71,14 @@ qq measures quantization quality
 codec decoder as a GAN at full width (``training.codec.gan_loop``, 8 steps
 on v1's dataset from q1's decoder checkpoint as written, no host
 sync inside a step, one step traced by ``utils/profiling.trace`` for its
-device-busy share); h1, last, fine-tunes from the serving BF16 HF dir with
+device-busy share); r1 runs two GRPO steps through
+``training.rlhf.main`` on ``example/configs/rlhf.json`` (one prompt a step,
+completions of up to its 1792 tokens, fp32 master weights)
+from c1's HF dir (the fixture tokenizer, extended to 193856 ids, written
+in), on v1's dataset, with q1's decoder and every reward backed by a
+full-width seeded model (Whisper large-v3 with a Whisper-shaped tokenizer,
+WavLM-Large + ECAPA, two DNSMOS-shaped ONNX graphs), and r1e one step with
+the rollouts through the contiguous engine (kernel C); h1, last, fine-tunes from the serving BF16 HF dir with
 the repository's Llama-3-style ``tokenizer.json`` copied in
 (``training.main``, 5 steps; the tokenizer's golden ids checked). A tiny
 GAN step runs on the card and the CPU among the small-model checks.
@@ -343,7 +353,7 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
     prefill (request (c)'s bucket), an engine group prefill of 8 such
     prompts, S = 137 and 2048, D = 128, fp32 (the CUDA-core path), n_rep 1
     and 8, kv_len < S causal and not, and the layers of draft distillation
-    (d1) and of the LoRA step (l1)."""
+    (d1), of the LoRA step (l1) and of the GRPO update (r1, 8 x 3072)."""
     from tts_max_tpu_torch.ops import attention
     from tts_max_tpu_torch.ops.flash_attention import flash_attention
 
@@ -365,6 +375,7 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
         # draft distillation's target: A without the training outputs
         ("distill B=8 S=512", 8, 512, 32, 8, 64, bf, True, None),
         ("LoRA B=2 S=2048", 2, 2048, 32, 8, 64, bf, True, None),  # l1's layer
+        ("GRPO B=8 S=3072", 8, 3072, 32, 8, 64, bf, True, None),  # r1's update forward
         ("main", 1, main_s, 32, 8, 64, bf, True, None),
     ]
     worst, main = 0.0, None
@@ -417,8 +428,8 @@ def attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len=None) -> tuple[float,
 # SFT's layer (Llama-3.2-1B at batch 4 x 2048) first, then fp32, Llama-3.1-8B's
 # head_dim, a tail, kv_len < S, n_rep 1, a sharp softmax (q x 4: D from the
 # bf16-rounded O alone puts dq and dk outside GRAD_TOL there), a small ragged
-# case (partial tiles in both kernels), batch 8, draft distillation's layer and
-# the LoRA step's (l1)
+# case (partial tiles in both kernels), batch 8, draft distillation's layer,
+# the LoRA step's (l1) and the GRPO update's (r1, at batch 2)
 BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len, q_scale)
     ("main", 4, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),
     ("fp32 S=1024", 1, 1024, 32, 8, 64, torch.float32, None, 1.0),
@@ -431,6 +442,8 @@ BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len, q_scale)
     ("B=8 S=1024", 8, 1024, 32, 8, 64, torch.bfloat16, None, 1.0),
     ("distill B=8 S=512", 8, 512, 32, 8, 64, torch.bfloat16, None, 1.0),
     ("LoRA B=2 S=2048", 2, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),
+    # r1's update layer is B=8 x 3072; the plain backward's fp32 scores hold it to 2
+    ("GRPO B=2 S=3072", 2, 3072, 32, 8, 64, torch.bfloat16, None, 1.0),
 ]
 
 
@@ -3325,6 +3338,473 @@ def run_hf_sft(model_dir: str, counters) -> dict:
     return got
 
 
+# --- r1 / r1e: GRPO RLHF through training.rlhf.main ------------------------------
+
+R1_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_r1")
+RLHF_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "example", "configs",
+                           "rlhf.json")
+R1_STEPS = 2
+R1E_COMPLETION = 128
+WHISPER_TOKENIZER_MAKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                       "fixtures", "make_whisper_style_tokenizer.py")
+
+
+def check_small_rlhf() -> None:
+    """The RLHF slice's small checks, card against CPU: ``grpo_loss`` and its
+    grads on a narrow fp32 model (kernels A and A' on the card; loss within
+    1e-5, grads within 1e-4 of each leaf's max) and one ``make_grpo_step``
+    held against the CPU's AdamW on the card's own grads (1e-6); a small
+    fp32 Whisper's greedy tokens identical; a conv/pool/BatchNorm/Gemm ONNX
+    graph through ``onnx_lite.run`` within 1e-5."""
+    from tts_max_tpu_torch.models import llama, whisper
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from tts_max_tpu_torch.training import optim
+    from tts_max_tpu_torch.training.rlhf import grpo
+    from tts_max_tpu_torch.utils import onnx_lite as ox
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, rope_theta=10000.0,
+                            use_llama3_rope_scaling=False, max_seq_len=256,
+                            dtype=torch.float32)
+    cpu = llama.init_params(cfg, seed=7, device="cpu")
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, 512, (4, 160)))
+    mask = torch.zeros(4, 160, dtype=torch.bool)
+    mask[:, 60:150] = True
+    adv = torch.tensor([1.5, -0.5, 0.25, -1.25])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = []
+
+        def track(p):
+            q = p.detach().to(dev).requires_grad_(True)
+            leaves.append(q)
+            return q
+
+        live = optim.tree_map(track, cpu)
+        loss, _ = grpo.grpo_loss(live, toks.to(dev), mask.to(dev), adv.to(dev), None, cfg=cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        it = iter([g.cpu() for g in grads])
+        out[dev] = (float(loss.detach()), optim.tree_map(lambda _: next(it), cpu))
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    if not abs(lg - lc) <= 1e-5 * max(abs(lc), 1e-3):
+        raise AssertionError(f"small GRPO: loss {lg} on the card, {lc} on the CPU")
+    ref = dict(optim.tree_items(gc))
+    worst_g = 0.0
+    for path, a in optim.tree_items(gg):
+        rel = max_err(a, ref[path]) / float(ref[path].abs().max())
+        worst_g = max(worst_g, rel)
+        if not (bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0 and rel <= 1e-4):
+            raise AssertionError(f"small GRPO: grad of {path} on the card: max err {rel:.2e} "
+                                 f"of max|g|")
+    gpu = optim.tree_map(lambda t: t.cuda(), cpu)
+    tx = optim.AdamW(1e-4, betas=(0.9, 0.95), weight_decay=0.1, mu_dtype="bf16")
+    step = grpo.make_grpo_step(cfg, tx, 0.0)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    new, _, m = step(gpu, tx.init(gpu), toks.cuda(), mask.cuda(), adv.cuda(), None)
+    if (flash_attention.launches, flash_attention_bwd.launches) != (2, 2):
+        raise AssertionError(f"small GRPO step: A {flash_attention.launches}, A' "
+                             f"{flash_attention_bwd.launches} launches, expected 2 and 2")
+    # the card's step against the CPU optimizer on the card's grads (Adam's
+    # first update takes the sign of grads that are rounding noise)
+    g_card = gg
+    if m.grad_norm > 1.0:
+        g_card = optim.tree_map(lambda t: t * (1.0 / m.grad_norm), gg)
+    upd, _ = tx.update(g_card, tx.init(cpu), cpu)
+    want = dict(optim.tree_items(optim.apply_updates(cpu, upd)))
+    worst_p = max(max_err(a.cpu(), want[p]) for p, a in optim.tree_items(new))
+    if not (worst_p <= 1e-6 and np.isfinite([m.loss, m.mean_logp, m.grad_norm]).all()):
+        raise AssertionError(f"small GRPO step: params {worst_p} off the CPU's step on the "
+                             f"card's grads; metrics {m}")
+
+    wcfg = whisper.WhisperConfig(n_mels=80, vocab_size=700, d_model=128, encoder_layers=2,
+                                 decoder_layers=2, num_heads=4, ffn_dim=256,
+                                 max_source_positions=100, max_target_positions=64,
+                                 decoder_start_token_id=600, eos_token_id=599)
+    wp = whisper.init_params(wcfg, seed=9, device="cpu")
+    wav = torch.from_numpy((rng.standard_normal((2, 32000)) * 0.1).astype(np.float32))
+    prompt = torch.tensor([[600, 601, 602], [600, 603, 602]], dtype=torch.int32)
+    dec = {}
+    for dev in ("cpu", "cuda"):
+        p = optim.tree_map(lambda t: t.to(dev), wp)
+        enc = whisper.encode(p, wcfg, whisper.log_mel_spectrogram(wav.to(dev), wcfg.n_mels))
+        dec[dev] = [t.cpu() for t in whisper.greedy_decode(p, wcfg, enc, prompt.to(dev), 40)]
+    if not all(torch.equal(a, b) for a, b in zip(dec["cuda"], dec["cpu"])):
+        raise AssertionError(f"small Whisper: greedy tokens {dec['cuda']} on the card, "
+                             f"{dec['cpu']} on the CPU")
+
+    primary, _ = dnsmos_graphs(seed=10, width=16)
+    g = ox.parse_model(primary)
+    x = (rng.standard_normal((1, 144160)) * 0.1).astype(np.float32)
+    (a,), (b,) = ox.run(g, {"input_1": x}, "cuda"), ox.run(g, {"input_1": x}, "cpu")
+    onnx_err = max_err(a.cpu(), b) / max(float(b.abs().max()), 1.0)
+    if not (a.device.type == "cuda" and onnx_err <= 1e-5):
+        raise AssertionError(f"small ONNX graph: {onnx_err:.2e} between card and CPU")
+    log(f"small RLHF checks, card vs CPU (fp32): GRPO loss {lg:.6f} vs {lc:.6f}, grads max err "
+        f"{worst_g:.2e} of each leaf's max (tol 1e-4); one GRPO step (A 2, A' 2 launches) "
+        f"within {worst_p:.2e} of the CPU's AdamW on the card's grads (tol 1e-6); Whisper "
+        f"greedy tokens identical ({dec['cuda'][1].tolist()} long); DNSMOS-shaped ONNX graph "
+        f"within {onnx_err:.2e} (tol 1e-5)")
+
+
+def dnsmos_graphs(seed: int = 0, width: int = 64) -> tuple[bytes, bytes]:
+    """Seeded stand-ins for DNSMOS's two ONNX graphs at its inputs, written
+    with the port's ONNX writer from convs, pools, a BatchNorm and Gemms:
+    ``sig_bak_ovr`` (raw 16 kHz [1, 144160] -> three raw scores) and
+    ``model_v8`` (the P.808 mel [1, T, 120] -> one)."""
+    from tts_max_tpu_torch.utils import onnx_lite as ox
+
+    r = np.random.default_rng(seed)
+    c = width
+
+    def f32(*shape, scale=1.0):
+        return (r.standard_normal(shape) * scale).astype(np.float32)
+
+    primary = ox.build_model_bytes([
+        ox.encode_node("Unsqueeze", ["input_1", "ax1"], ["x"]),
+        ox.encode_node("Conv", ["x", "w1", "b1"], ["c1"], kernel_shape=[400], strides=[160]),
+        ox.encode_node("Relu", ["c1"], ["r1"]),
+        ox.encode_node("MaxPool", ["r1"], ["p1"], kernel_shape=[4], strides=[4]),
+        ox.encode_node("Conv", ["p1", "w2", "b2"], ["c2"], kernel_shape=[3],
+                       auto_pad=b"SAME_UPPER"),
+        ox.encode_node("Relu", ["c2"], ["r2"]),
+        ox.encode_node("GlobalAveragePool", ["r2"], ["g"]),
+        ox.encode_node("Flatten", ["g"], ["f"], axis=1),
+        ox.encode_node("Gemm", ["f", "wd", "bd"], ["out"], transB=1),
+    ], ["input_1"], ["out"], {
+        "ax1": np.asarray([1], np.int64), "w1": f32(c, 1, 400, scale=0.05),
+        "b1": f32(c, scale=0.1), "w2": f32(c, c, 3, scale=(3 * c) ** -0.5),
+        "b2": f32(c, scale=0.1), "wd": f32(3, c, scale=c ** -0.5),
+        "bd": np.asarray([3.0, 3.5, 3.2], np.float32)})
+    p808 = ox.build_model_bytes([
+        ox.encode_node("Unsqueeze", ["input_1", "ax1"], ["x"]),
+        ox.encode_node("Conv", ["x", "w1", "b1"], ["c1"], kernel_shape=[3, 3],
+                       pads=[1, 1, 1, 1]),
+        ox.encode_node("Relu", ["c1"], ["r1"]),
+        ox.encode_node("MaxPool", ["r1"], ["p1"], kernel_shape=[2, 2], strides=[2, 2]),
+        ox.encode_node("BatchNormalization", ["p1", "s", "bb", "m", "v"], ["n1"]),
+        ox.encode_node("Conv", ["n1", "w2", "b2"], ["c2"], kernel_shape=[3, 3],
+                       pads=[1, 1, 1, 1]),
+        ox.encode_node("Relu", ["c2"], ["r2"]),
+        ox.encode_node("GlobalMaxPool", ["r2"], ["g"]),
+        ox.encode_node("Flatten", ["g"], ["f"], axis=1),
+        ox.encode_node("Gemm", ["f", "wd", "bd"], ["out"], transB=1),
+    ], ["input_1"], ["out"], {
+        "ax1": np.asarray([1], np.int64), "w1": f32(c, 1, 3, 3, scale=0.3),
+        "b1": f32(c, scale=0.1), "s": np.ones(c, np.float32), "bb": np.zeros(c, np.float32),
+        "m": np.zeros(c, np.float32), "v": np.ones(c, np.float32),
+        "w2": f32(c, c, 3, 3, scale=(9 * c) ** -0.5), "b2": f32(c, scale=0.1),
+        "wd": f32(1, c, scale=0.1 * c ** -0.5), "bd": np.asarray([3.0], np.float32)})
+    return primary, p808
+
+
+def write_reward_models(directory: str) -> dict:
+    """r1's reward models at their published widths, seeded, written as real
+    checkpoints come: Whisper large-v3 (128 mels, d 1280, 32 + 32 layers, 20
+    heads, 51866 ids) as a BF16 HF dir with the full-size Whisper-shaped
+    tokenizer (``tests/fixtures/make_whisper_style_tokenizer.py``);
+    WavLM-Large (1024 x 24) as an fp32 HF dir; ECAPA-TDNN (``feat_dim``
+    1024, channels 512) as a UniSpeech-named torch checkpoint with a seeded
+    ``feature_weight`` (``module.``-prefixed under "model", as UniSpeech
+    saves it); the two DNSMOS graphs (``dnsmos_graphs``). Returns the paths,
+    sizes and seconds."""
+    import importlib.util
+
+    from tts_max_tpu_torch.models import wavlm, whisper
+    from tts_max_tpu_torch.training.rlhf import ecapa
+
+    t0 = time.perf_counter()
+    out = {"whisper_dir": os.path.join(directory, "whisper"),
+           "dnsmos_dir": os.path.join(directory, "dnsmos"),
+           "wavlm_dir": os.path.join(directory, "wavlm"),
+           "ecapa_checkpoint": os.path.join(directory, "ecapa.pt")}
+    wcfg = whisper.WhisperConfig()
+    params = whisper.init_params(wcfg, seed=11, dtype=torch.bfloat16, device="cuda")
+    whisper.save_hf_dir(params, wcfg, out["whisper_dir"])
+    del params
+    spec = importlib.util.spec_from_file_location("make_whisper_style_tokenizer",
+                                                  WHISPER_TOKENIZER_MAKER)
+    maker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(maker)
+    n_ids = maker.write(out["whisper_dir"])
+    if n_ids != wcfg.vocab_size:
+        raise AssertionError(f"r1: the Whisper-shaped tokenizer has {n_ids} ids")
+    vcfg = wavlm.WavLMConfig()
+    wavlm.save_hf_dir(wavlm.init_params(vcfg, seed=12, device="cuda"), vcfg, out["wavlm_dir"])
+    ecfg = ecapa.ECAPAConfig(feat_dim=vcfg.hidden_size)
+    sd = ecapa.export_torch_state_dict(ecapa.init_params(ecfg, seed=13, device="cuda"), ecfg)
+    sd["feature_weight"] = torch.randn(vcfg.num_layers + 1,
+                                       generator=torch.Generator().manual_seed(14))
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()}}, out["ecapa_checkpoint"])
+    os.makedirs(out["dnsmos_dir"], exist_ok=True)
+    for name, data in zip(("sig_bak_ovr.onnx", "model_v8.onnx"), dnsmos_graphs(seed=15)):
+        with open(os.path.join(out["dnsmos_dir"], name), "wb") as f:
+            f.write(data)
+    out["seconds"] = time.perf_counter() - t0
+    out["gib"] = {k: _gib(v) if os.path.isdir(v) else os.path.getsize(v) / 2 ** 30
+                  for k, v in out.items() if k.endswith(("_dir", "_checkpoint"))}
+    return out
+
+
+def write_extended_tokenizer(model_dir: str) -> int:
+    """The repository's Llama-3-style fixture tokenizer, extended with the
+    speech vocabulary to the fixed 193856 ids and written into ``model_dir``
+    with every added token in its ``tokenizer.json``, as an SFT checkpoint's
+    saved tokenizer carries them (the policy samples from all 193856 ids,
+    and every id a rollout emits must be one the tokenizer knows). Returns
+    the number of ids."""
+    import shutil
+
+    from tts_max_tpu_torch.core import hf_tokenizer, tokenization
+
+    tok = tokenization.extend_tokenizer(hf_tokenizer.HFTokenizer.from_dir(TOKENIZER_FIXTURE),
+                                        expected_vocab_size=FIXED_VOCAB)
+    with open(os.path.join(TOKENIZER_FIXTURE, "tokenizer.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    spec["added_tokens"] = [
+        {"id": i, "content": t.content, "single_word": t.single_word, "lstrip": t.lstrip,
+         "rstrip": t.rstrip, "normalized": t.normalized, "special": t.special}
+        for i, t in sorted(tok._added_tokens.items())]
+    with open(os.path.join(model_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    shutil.copy(os.path.join(TOKENIZER_FIXTURE, "tokenizer_config.json"), model_dir)
+    return len(tok)
+
+
+def write_rlhf_config(out_dir: str, **rlhf) -> tuple[str, dict]:
+    """``example/configs/rlhf.json`` with r1's changes: one prompt a step
+    (``batch_size`` 4 -> 1: one GRPO group of ``num_generations`` 8; 4
+    prompts would put 32 clips a step through Whisper, four times r1's
+    reward time), ``save_steps`` 50 -> 2, ``keep_only_last_n_checkpoints``
+    3 -> 1, ``save_completions_every_n_steps`` 50 -> 2 and ``output_dir``;
+    ``rlhf`` overrides more rlhf keys (r1e)."""
+    with open(RLHF_CONFIG) as f:
+        cfg = json.load(f)
+    cfg["training"]["batch_size"] = 1
+    cfg["checkpointing"].update(save_steps=2, keep_only_last_n_checkpoints=1)
+    cfg["rlhf"].update({"save_completions_every_n_steps": 2, **rlhf})
+    cfg["output_dir"] = out_dir
+    path = out_dir + ".json"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path, cfg
+
+
+class _GRPORecorder:
+    """Wraps ``GRPOTrainer.train_step`` and ``make_grpo_step`` for r1: per
+    step the parameter tree before it, the tree its rollout sampled from,
+    the tree after it, the share of parameter elements the update changed,
+    the advantages and the stats; and the update of step ``traced`` under
+    ``utils/profiling.trace`` (its busy time and wall, synchronized)."""
+
+    def __init__(self, log_dir: str, traced: int):
+        self.log_dir, self.traced = log_dir, traced
+        self.steps, self.updates = [], 0
+        self.busy_ms = self.wall_ms = None
+
+    def __enter__(self):
+        from tts_max_tpu_torch.training.optim import tree_leaves
+        from tts_max_tpu_torch.training.rlhf import grpo
+        from tts_max_tpu_torch.utils import profiling
+
+        self.grpo = grpo
+        self.real_step, self.real_make = grpo.GRPOTrainer.train_step, grpo.make_grpo_step
+        rec = self
+
+        def train_step(trainer, prompts):
+            before = trainer.params
+            stats = rec.real_step(trainer, prompts)
+            with torch.no_grad():
+                moved = sum(int((a != b).sum()) for a, b in zip(
+                    tree_leaves(before), tree_leaves(trainer.params)))
+                total = sum(t.numel() for t in tree_leaves(before))
+            rec.steps.append(dict(before=id(before), rollout=id(trainer.rollout_params),
+                                  after=id(trainer.params), moved=moved / total,
+                                  adv=trainer.last_batch.advantages.copy(), stats=stats))
+            log(f"  r1 step {len(rec.steps)} done: " + " ".join(
+                f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in stats.items()) + f"; peak so far "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            return stats
+
+        def make(*a, **kw):
+            real = rec.real_make(*a, **kw)
+
+            def step(*args):
+                rec.updates += 1
+                if rec.updates != rec.traced:
+                    return real(*args)
+                with profiling.trace(rec.log_dir) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = real(*args)
+                    torch.cuda.synchronize()
+                    rec.wall_ms = 1e3 * (time.perf_counter() - t0)
+                rec.busy_ms = profiling.device_busy_us(prof) / 1e3
+                return out
+
+            return step
+
+        grpo.GRPOTrainer.train_step, grpo.make_grpo_step = train_step, make
+        return self
+
+    def __exit__(self, *exc):
+        self.grpo.GRPOTrainer.train_step = self.real_step
+        self.grpo.make_grpo_step = self.real_make
+
+
+def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
+    """r1: ``training.rlhf.main`` on ``example/configs/rlhf.json`` as users
+    run it (``write_rlhf_config``'s changes, R1_STEPS steps) from c1's
+    Llama-3.2-1B HF dir (the SFT's final model, with the fixture tokenizer
+    extended to 193856 ids written in, ``write_extended_tokenizer``) on v1's
+    dataset (40 samples whose wavs exist), q1's seeded full-width Vocos
+    decoder, and all three rewards backed by ``write_reward_models``'s
+    full-width models. Checks: every completion transcribed (8 a step),
+    embedded (16) and scored (8) by its backend with no call failing;
+    advantages finite and not all zero; loss, mean logprob and grad norm
+    finite, grad norm > 0; round 2 sampled from step 1's updated tensors;
+    fp32 weights with remat, over half of them moved by each step; a
+    checkpoint at step 2; the launches A = 3 x layers a step (the
+    rollout's prefill, the update's forward and its remat recompute), A' =
+    layers a step, B = layers a decode step. Then r1e: one step through the contiguous engine
+    (``--rollout_via_engine``, ``max_completion_length`` 128,
+    ``constrain_to_speech`` on so that the engine keeps a head window; no
+    Whisper dir, so its WER reward takes the no-backend score: r1 holds
+    Whisper, and its 8 clips would double r1e's time), after which the
+    engine's params and head window are the trainer's; its launches: A =
+    layers for each prefill group and twice for the update, C = layers a
+    decode step. Returns the launch counts of both."""
+    import shutil
+
+    from tts_max_tpu_torch.models import hf_import, llama
+    from tts_max_tpu_torch.training.optim import tree_leaves
+    from tts_max_tpu_torch.training.rlhf import main as rlhf_main
+
+    shutil.rmtree(R1_DIR, ignore_errors=True)
+    os.makedirs(R1_DIR)
+    t0 = time.perf_counter()
+    n_ids = write_extended_tokenizer(hf_dir)
+    tok_s = time.perf_counter() - t0
+    models = write_reward_models(os.path.join(R1_DIR, "rewards"))
+    log(f"  r1 inputs: c1's dir with the fixture tokenizer extended to {n_ids} ids "
+        f"({tok_s:.2f} s); reward models written in {models['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in models["gib"].items()))
+    L = hf_import.config_from_hf(hf_dir).n_layers
+    backend_args = ["--whisper_dir", models["whisper_dir"], "--dnsmos_dir",
+                    models["dnsmos_dir"], "--wavlm_dir", models["wavlm_dir"],
+                    "--ecapa_checkpoint", models["ecapa_checkpoint"]]
+    path, cfg = write_rlhf_config(os.path.join(R1_DIR, "out"))
+    G = cfg["rlhf"]["num_generations"]
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _GRPORecorder(os.path.join(R1_DIR, "trace"), traced=2) as rec:
+        res = rlhf_main.main(["--config_path", path, "--dataset_dir", ds, "--model_dir",
+                              hf_dir, "--codec_decoder", dec_path, "--total_steps",
+                              str(R1_STEPS), "--device", "cuda", *backend_args])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = _counts(counters)
+    steps = [s["stats"] for s in rec.steps]
+    decode = sum(s["decode_steps"] for s in steps)
+    _check_counts("r1 GRPO RLHF", got, _want(
+        counters, flash_attention=3 * L * R1_STEPS, flash_attention_bwd=L * R1_STEPS,
+        flash_decode_attention=L * decode))
+    b = res.backends
+    want_calls = {"transcribe_fn": G * R1_STEPS, "embed_fn": 2 * G * R1_STEPS,
+                  "dnsmos_fn": G * R1_STEPS}
+    calls = {k: (b[k].calls, b[k].completed) for k in want_calls}
+    if calls != {k: (n, n) for k, n in want_calls.items()}:
+        raise AssertionError(f"r1: backend (calls, completed) {calls}, expected "
+                             f"{want_calls} each with every call completed")
+    for i, s in enumerate(rec.steps):
+        st = s["stats"]
+        if not (np.isfinite(s["adv"]).all() and np.abs(s["adv"]).max() > 0
+                and np.isfinite([st["loss"], st["mean_logp"], st["grad_norm"]]).all()
+                and st["grad_norm"] > 0):
+            raise AssertionError(f"r1 step {i + 1}: advantages {s['adv']}, stats {st}")
+    if not (rec.steps[1]["rollout"] == rec.steps[0]["after"] != rec.steps[0]["before"]):
+        raise AssertionError("r1: round 2 did not sample from the trainer's updated tensors")
+    dtypes = {t.dtype for t in tree_leaves(res.trainer.params)}
+    moved = [s["moved"] for s in rec.steps]
+    # fp32 master weights take rlhf.json's 1e-6 step almost everywhere (bf16
+    # weights would round most of it away)
+    if dtypes != {torch.float32} or not res.trainer.cfg.remat or min(moved) <= 0.5:
+        raise AssertionError(f"r1: weights {dtypes}, remat {res.trainer.cfg.remat}, share "
+                             f"of weights each step moved {moved}")
+    ckpts = os.listdir(os.path.join(cfg["output_dir"], "checkpoints"))
+    ckpt_gib = _gib(os.path.join(cfg["output_dir"], "checkpoints", "2"))
+    wavs = os.listdir(os.path.join(cfg["output_dir"], "completion_samples"))
+    if ckpts != ["2"] or len(res.checkpoint_seconds) != 1 or not wavs:
+        raise AssertionError(f"r1: checkpoints {ckpts}, saves {res.checkpoint_seconds}, "
+                             f"{len(wavs)} completion wavs")
+    trainer = res.trainer
+    log(f"  r1 GRPO RLHF through training.rlhf.main ({R1_STEPS} steps, 1 prompt x "
+        f"{G} completions of up to {cfg['rlhf']['max_completion_length']} tokens, the "
+        f"update at {trainer.last_batch.tokens.shape[0]} x {trainer.last_batch.tokens.shape[1]}"
+        f" tokens, fp32 weights, remat): wall {wall:.1f} s, "
+        f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
+    for i, s in enumerate(rec.steps):
+        st = s["stats"]
+        rewards = {k: st[k] for k in ("WERRewardFunc", "DNSMOSRewardFunc",
+                                      "SimilarityRewardFunc")}
+        secs = {k: st[k + "_seconds"] for k in rewards}
+        log(f"  r1 step {i + 1}: rollout {st['rollout_seconds']:.2f} s, {st['decode_steps']} "
+            f"decode steps, {1e3 * st['rollout_seconds'] / st['decode_steps']:.2f} ms/step "
+            f"(prefill included); completion length {st['completion_len']:.1f}; reward "
+            f"seconds " + " ".join(f"{k} {v:.2f}" for k, v in secs.items())
+            + f"; update {st['update_seconds']:.3f} s; reward means "
+            + " ".join(f"{k} {v:.4f}" for k, v in rewards.items())
+            + f" (total {st['reward_mean']:.4f}, std {st['reward_std']:.4f}); advantages "
+            + " ".join(f"{a:+.3f}" for a in s["adv"])
+            + f"; loss {st['loss']:.6f}, mean logp {st['mean_logp']:.4f}, grad norm "
+            f"{st['grad_norm']:.4f}; share of weights the update moved {s['moved']:.4f}")
+    busy = ("not measured (the profiler recorded no device time)" if not rec.busy_ms else
+            f"{rec.busy_ms:.2f} ms busy of its traced wall {rec.wall_ms:.2f} ms = "
+            f"{rec.busy_ms / rec.wall_ms:.4f}")
+    log(f"  r1 update of step 2, device-busy share (utils/profiling.trace): {busy}; "
+        f"checkpoint {ckpt_gib:.2f} GiB in {res.checkpoint_seconds[0]:.2f} s; "
+        f"{len(wavs)} completion wavs; backends (calls, completed) {calls}; launches {got}")
+    del res, trainer, rec
+    torch.cuda.empty_cache()
+
+    # r1e: one step with the rollouts through the contiguous engine (kernel C)
+    path, cfg = write_rlhf_config(os.path.join(R1_DIR, "out_e"),
+                                  max_completion_length=R1E_COMPLETION,
+                                  constrain_to_speech=True)
+    _zero(counters)
+    t0 = time.perf_counter()
+    res = rlhf_main.main(["--config_path", path, "--dataset_dir", ds, "--model_dir", hf_dir,
+                          "--codec_decoder", dec_path, "--total_steps", "1",
+                          "--rollout_via_engine", "--device", "cuda", *backend_args[2:]])
+    wall_e = time.perf_counter() - t0
+    got_e = _counts(counters)
+    trainer, st = res.trainer, res.steps[0]
+    eng = trainer._engine
+    _check_counts("r1e GRPO RLHF, rollouts through the engine", got_e, _want(
+        counters, flash_attention=L * (eng._prefill_groups + 2), flash_attention_bwd=L,
+        ragged_decode_attention=L * st["decode_steps"]))
+    head = llama.slice_logits_head(trainer.params, trainer.cfg, *trainer.sv.generation_window())
+    if not (eng.params is trainer.params and trainer.rollout_params is not trainer.params
+            and torch.equal(eng._head, head)):
+        raise AssertionError("r1e: the engine does not hold the trainer's updated params and "
+                             "head window after the step")
+    calls_e = {k: (v.calls, v.completed) for k, v in res.backends.items()}
+    if calls_e != {"dnsmos_fn": (G, G), "embed_fn": (2 * G, 2 * G)}:
+        raise AssertionError(f"r1e: backend (calls, completed) {calls_e}")
+    log(f"  r1e one step through the contiguous engine ({R1E_COMPLETION} tokens, "
+        f"constrain_to_speech, no Whisper): wall {wall_e:.1f} s, rollout "
+        f"{st['rollout_seconds']:.2f} s, "
+        f"{st['decode_steps']} decode steps; loss {st['loss']:.6f}, grad norm "
+        f"{st['grad_norm']:.4f}; after the step the engine's params and head window are "
+        f"the trainer's; backends {calls_e}; launches {got_e}")
+    del res, trainer, eng
+    shutil.rmtree(R1_DIR)
+    torch.cuda.empty_cache()
+    return {k: got[k] + got_e[k] for k in got}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
@@ -3412,6 +3892,7 @@ def main() -> int:
     check_small_encoder()
     check_small_train()
     check_small_gan()
+    check_small_rlhf()
     counters = [flash_attention, flash_attention_bwd, flash_decode_attention,
                 ragged_decode_attention, paged_decode_attention_dense,
                 paged_decode_attention_dma, paged_decode_attention, activation1d_kernel,
@@ -3437,7 +3918,6 @@ def main() -> int:
     log(f"  SFT path wall {time.perf_counter() - t_tr:.1f} s")
     phase("g1 codec GAN")
     add_chain(run_gan(ds, q1[0], counters))
-    shutil.rmtree(os.path.dirname(q1[0]))  # the codec checkpoints
     phase("c1 convert and serve")
     hf_dir, got, trained_params = run_convert_and_serve(os.path.join(TRAIN_DIR, "out"),
                                                         counters)
@@ -3449,6 +3929,9 @@ def main() -> int:
     phase("sp3 speculative with the distilled draft")
     sp3, got = run_sp3(tok, sv, hf_dir, draft_dir, counters)
     add_chain(got)
+    phase("r1 GRPO RLHF and r1e through the engine")
+    add_chain(run_rlhf(hf_dir, ds, q1[0], counters))
+    shutil.rmtree(os.path.dirname(q1[0]))  # the codec checkpoints
     shutil.rmtree(CHAIN_DIR)
     phase("synthesis path")
     model, params, cfg, codec, launches = run_main_path(tok, sv, counters)

@@ -207,12 +207,28 @@ def test_loader_order_sharding_and_fast_forward_match():
 
 
 def test_builder_refuses_rlhf(tmp_path, toks):
-    _, tk = toks
+    """``enable_rlhf_training`` no longer raises: the builder makes the
+    RLHF prompt dataset, whose items equal the JAX builder's (this sample's
+    codes and the next sample's transcript)."""
+    from tts_max_tpu.data import builder as jbuilder
+
+    jtk, tk = toks
     shards = [(np.arange(6, dtype=np.int32), np.array([0, 3]), _sample_dicts(2))]
-    _, pdir = _write_both(tmp_path, "train", shards)
+    jdir, pdir = _write_both(tmp_path, "train", shards)
     cfg = config.DatasetConfig(enable_rlhf_training=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        builder.merge_datasets(tk, {pdir: 1.0}, 64, "train", False, BasicTextNormalizer(), cfg)
+    ds, name = builder.build_dataset(tk, pdir, 64, "train", False, BasicTextNormalizer(), cfg)
+    jds, jname = jbuilder.build_dataset(jtk, jdir, 64, "train", False, JNormalizer(),
+                                        jconfig.DatasetConfig(enable_rlhf_training=True))
+    assert type(ds).__name__ == type(jds).__name__ == "TtsRLHFDataset"
+    assert len(ds) == len(jds) == 2 and name == "port" and jname == "jax"
+    for i in range(2):
+        ours, theirs = ds[i], jds[i]
+        assert sorted(ours) == sorted(theirs)
+        for k in ours:
+            if isinstance(ours[k], np.ndarray):
+                np.testing.assert_array_equal(ours[k], theirs[k])
+            else:
+                assert ours[k] == theirs[k], k
     ds = builder.merge_datasets(tk, {pdir: 1.0}, 64, "train", False, BasicTextNormalizer(),
                                 config.DatasetConfig())
     assert len(ds) == 2 and ds[0]["source"] == "port"

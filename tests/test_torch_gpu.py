@@ -470,6 +470,9 @@ def test_speculative_draft_equal_to_target_on_the_card():
     (1, 333, 8, 2, 128, torch.bfloat16, 301, 4.0),    # D = 128 on the tensor cores
     (8, 512, 32, 8, 64, torch.bfloat16, None, 1.0),   # draft distillation's layer
     (2, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),  # the LoRA step's layer
+    # the GRPO update's layer (batch 8 there; 2 keeps the plain backward's
+    # fp32 score matrices in memory)
+    (2, 3072, 32, 8, 64, torch.bfloat16, None, 1.0),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(b, s, hq, hkv, d, dtype, kv_len, q_scale):
     """Kernel A' against the plain backward within GRAD_TOL: bf16 (tensor
@@ -677,3 +680,124 @@ def test_gan_step_on_the_card_matches_the_cpu():
         for path, t in optim.tree_items(out["cuda"][i]):
             r = ref[path]
             assert (t.cpu() - r).abs().max() <= 1e-4 * max(float(r.abs().max()), 1.0), path
+
+
+# --- RLHF: the GRPO step and the reward models -----------------------------------
+
+
+@pytest.mark.gpu
+def test_grpo_step_on_the_card_matches_the_cpu():
+    """``grpo_loss`` and its grads on the card (kernels A and A', fp32 on
+    the CUDA cores, TF32 off) against the CPU's plain versions: the loss
+    within 1e-5, each grad within GRAD_TOL; then one ``make_grpo_step`` on
+    the card launches A and A' once a layer and gives finite metrics."""
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.ops.attention import grad_tol_ratio
+    from tts_max_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from tts_max_tpu_torch.training import optim
+    from tts_max_tpu_torch.training.rlhf import grpo
+
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, max_seq_len=128, dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 512, (4, 96), generator=g)
+    mask = torch.zeros(4, 96, dtype=torch.bool)
+    mask[:, 40:90] = True
+    adv = torch.tensor([1.0, -1.0, 0.5, -0.5])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        leaves = []
+
+        def track(p):
+            q = p.detach().to(dev).requires_grad_(True)
+            leaves.append(q)
+            return q
+
+        live = optim.tree_map(track, params)
+        loss, _ = grpo.grpo_loss(live, toks.to(dev), mask.to(dev), adv.to(dev), None, cfg=cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        results[dev] = (float(loss.detach()), [x.cpu() for x in grads])
+    assert results["cuda"][0] == pytest.approx(results["cpu"][0], rel=1e-5, abs=1e-6)
+    for a, r in zip(results["cuda"][1], results["cpu"][1]):
+        assert grad_tol_ratio(a, r) <= 1.0
+
+    p = optim.tree_map(lambda t: t.to("cuda"), params)
+    tx = optim.AdamW(1e-4, betas=(0.9, 0.95), weight_decay=0.1, mu_dtype="bf16")
+    step = grpo.make_grpo_step(cfg, tx, 0.0)
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    new, _, m = step(p, tx.init(p), toks.cuda(), mask.cuda(), adv.cuda(), None)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (cfg.n_layers,
+                                                                        cfg.n_layers)
+    assert all(map(lambda x: x == x and abs(x) < float("inf"), m)) and m.grad_norm > 0
+    assert not torch.equal(new["layers"]["attn"]["wq"]["kernel"],
+                           p["layers"]["attn"]["wq"]["kernel"])
+
+
+@pytest.mark.gpu
+def test_whisper_greedy_on_the_card_matches_the_cpu():
+    """A small fp32 Whisper's log-mel and encoder within 1e-4 and its greedy
+    tokens and lengths identical, card against CPU."""
+    from tts_max_tpu_torch.device import full_fp32
+    from tts_max_tpu_torch.models import whisper
+    from tts_max_tpu_torch.training import optim
+
+    _cuda()
+    full_fp32()
+    cfg = whisper.WhisperConfig(n_mels=80, vocab_size=700, d_model=128, encoder_layers=2,
+                                decoder_layers=2, num_heads=4, ffn_dim=256,
+                                max_source_positions=100, max_target_positions=64,
+                                decoder_start_token_id=600, eos_token_id=599)
+    params = whisper.init_params(cfg, seed=0, device="cpu")
+    wav = torch.randn(2, 32000, generator=torch.Generator().manual_seed(3)) * 0.1
+    prompt = torch.tensor([[600, 601, 602], [600, 603, 602]], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = optim.tree_map(lambda t: t.to(dev), params)
+        mel = whisper.log_mel_spectrogram(wav.to(dev), cfg.n_mels)
+        enc = whisper.encode(p, cfg, mel)
+        out[dev] = (mel.cpu(), enc.cpu(), *[t.cpu() for t in whisper.greedy_decode(
+            p, cfg, enc, prompt.to(dev), 40)])
+    for a, r in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert (a - r).abs().max() <= 1e-4 * max(float(r.abs().max()), 1.0)
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+    assert torch.equal(out["cuda"][3], out["cpu"][3])
+
+
+@pytest.mark.gpu
+def test_onnx_graph_on_the_card_matches_the_cpu():
+    """A conv / pool / batchnorm / Gemm graph through ``onnx_lite.run`` on
+    the card and on the CPU within 1e-5; the float initializers live on the
+    card, the shape-like ones on the host."""
+    import numpy as np
+
+    from tts_max_tpu_torch.device import full_fp32
+    from tts_max_tpu_torch.utils import onnx_lite as ox
+
+    _cuda()
+    full_fp32()
+    r = np.random.default_rng(0)
+    f32 = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    g = ox.parse_model(ox.build_model_bytes([
+        ox.encode_node("Unsqueeze", ["x", "ax"], ["u"]),
+        ox.encode_node("Conv", ["u", "w", "b"], ["c"], kernel_shape=[3, 3], pads=[1, 1, 1, 1]),
+        ox.encode_node("Relu", ["c"], ["rl"]),
+        ox.encode_node("MaxPool", ["rl"], ["mp"], kernel_shape=[2, 2], strides=[2, 2]),
+        ox.encode_node("BatchNormalization", ["mp", "s", "bb", "m", "v"], ["bn"]),
+        ox.encode_node("AveragePool", ["bn"], ["ap"], kernel_shape=[3, 3], strides=[1, 1],
+                       auto_pad=b"SAME_UPPER"),
+        ox.encode_node("GlobalAveragePool", ["ap"], ["ga"]),
+        ox.encode_node("Flatten", ["ga"], ["f"], axis=1),
+        ox.encode_node("Gemm", ["f", "wd", "bd"], ["y"], transB=1)],
+        ["x"], ["y"], {"ax": np.asarray([1], np.int64), "w": f32(8, 1, 3, 3), "b": f32(8),
+                       "s": np.abs(f32(8)) + 0.5, "bb": f32(8), "m": f32(8),
+                       "v": np.abs(f32(8)) + 0.5, "wd": f32(3, 8), "bd": f32(3)}))
+    x = f32(2, 300, 120)
+    (ref,) = ox.run(g, {"x": x}, "cpu")
+    (out,) = ox.run(g, {"x": x}, "cuda")
+    assert out.device.type == "cuda"
+    assert (out.cpu() - ref).abs().max() <= 1e-5 * max(float(ref.abs().max()), 1.0)
+    on_card = g.on_device[torch.device("cuda", torch.cuda.current_device())]
+    assert on_card["w"].device.type == "cuda" and isinstance(on_card["ax"], np.ndarray)

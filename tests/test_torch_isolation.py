@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX (nor ``optax`` or ``orbax``),
-nothing of ``tts_max_tpu``, no ``transformers``, ``tokenizers``, ``regex``
-or ``safetensors`` (the card's machine has none of them), and nothing of the repository's ``tools`` package (its CLIs are
+nothing of ``tts_max_tpu``, no ``transformers``, ``tokenizers``, ``regex``,
+``safetensors``, ``onnx`` or ``onnxruntime`` (the card's machine has none
+of them), and nothing of the repository's ``tools`` package (its CLIs are
 JAX's; the port has its own in ``tts_max_tpu_torch/tools``); nor do the
 scripts that drive it on the card (``chip_smoke.py``,
 ``tools/profile_torch_synthesis.py``)."""
@@ -16,7 +17,7 @@ SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
 _BLOCKED = (rf"(?:jax\b|optax\b|orbax\b|transformers\b|tokenizers\b|regex\b|safetensors\b"
-            rf"|tools\b|{_JAX_PKG})")
+            rf"|onnx\b|onnxruntime\b|tools\b|{_JAX_PKG})")
 _IMPORT = re.compile(rf"^\s*(?:import\s+{_BLOCKED}|from\s+{_BLOCKED}[\s.])", re.MULTILINE)
 
 
@@ -48,6 +49,11 @@ def test_import_regex_tells_the_packages_apart():
     assert _IMPORT.search("    from tokenizers import Tokenizer")
     assert not _IMPORT.search("import re")
     assert not _IMPORT.search("import regex_lite")
+    assert _IMPORT.search("import onnx")
+    assert _IMPORT.search("    import onnxruntime as ort")
+    assert _IMPORT.search("from onnx import helper")
+    assert not _IMPORT.search("from tts_max_tpu_torch.utils import onnx_lite")
+    assert not _IMPORT.search("import onnx_lite")
 
 
 def test_no_jax_or_reference_package_imports_in_sources():
@@ -60,7 +66,11 @@ def test_no_jax_or_reference_package_imports_in_sources():
             PKG / "utils" / "profiling.py", PKG / "models" / "codec" / "discriminator.py",
             PKG / "models" / "codec" / "losses.py", PKG / "training" / "codec" / "gan.py",
             PKG / "training" / "codec" / "gan_loop.py",
-            PKG / "training" / "codec" / "codec_data.py"} <= set(scanned)
+            PKG / "training" / "codec" / "codec_data.py", PKG / "models" / "whisper.py",
+            PKG / "models" / "wavlm.py", PKG / "utils" / "onnx_lite.py"} | {
+            PKG / "training" / "rlhf" / f"{m}.py" for m in (
+                "asr", "dataset", "dnsmos", "ecapa", "grpo", "main", "reward_utils",
+                "rewards")} <= set(scanned)
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in scanned
@@ -71,8 +81,9 @@ def test_no_jax_or_reference_package_imports_in_sources():
 
 def test_every_module_imports_without_jax():
     """In a fresh interpreter where ``import jax``, ``import transformers``,
-    ``import tokenizers``, ``import regex``, ``import safetensors`` and the
-    repository's ``import tools`` fail, every
+    ``import tokenizers``, ``import regex``, ``import safetensors``,
+    ``import onnx``, ``import onnxruntime`` and the repository's ``import
+    tools`` fail, every
     module of the port and both scripts import, and no ``tts_max_tpu``
     module gets loaded."""
     mods = list(_modules())
@@ -87,6 +98,8 @@ def test_every_module_imports_without_jax():
         "sys.modules['tokenizers'] = None\n"
         "sys.modules['regex'] = None\n"
         "sys.modules['safetensors'] = None\n"
+        "sys.modules['onnx'] = None\n"
+        "sys.modules['onnxruntime'] = None\n"
         "sys.modules['tools'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
@@ -96,7 +109,7 @@ def test_every_module_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'tts_max_tpu'"
         " or m.startswith('tts_max_tpu.')"
         " or m in ('jax', 'optax', 'orbax', 'transformers', 'tokenizers', 'regex',"
-        " 'safetensors', 'tools')"
+        " 'safetensors', 'onnx', 'onnxruntime', 'tools')"
         " and sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"

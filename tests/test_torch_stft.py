@@ -4,7 +4,9 @@
 off and a window shorter than ``n_fft`` (zero-padded to the middle), also
 against ``torch.stft``; the filter bank bitwise (both numpy float64 cast to
 fp32); ``mel_spectrogram`` at the GAN mel loss's resolutions and two
-sample rates. Tolerance: 1e-5 of the largest magnitude (fp32 FFTs of two
+sample rates; DNSMOS's zero-padded STFT at its odd ``n_fft`` 321
+(``pad_mode="constant"``) and ECAPA's power mel (``power=2.0``) as the RLHF
+rewards call them. Tolerance: 1e-5 of the largest magnitude (fp32 FFTs of two
 libraries)."""
 
 import jax.numpy as jnp
@@ -57,3 +59,23 @@ def test_mel_spectrogram_matches_jax(wav, win, n_mels, sr):
     got = stft.mel_spectrogram(torch.from_numpy(wav), sr, win, win // 4, n_mels)
     want = jstft.mel_spectrogram(jnp.asarray(wav), sr, win, win // 4, n_mels)
     _close(got.numpy(), np.asarray(want), f"mel {win}")
+
+
+@pytest.mark.parametrize("n_fft,hop", [(321, 160), (400, 160)])
+def test_stft_constant_pad_matches_jax(wav, n_fft, hop):
+    """DNSMOS's features: an odd n_fft, the centered signal zero-padded."""
+    got = stft.stft(torch.from_numpy(wav), n_fft, hop, pad_mode="constant")
+    want = jstft.stft(jnp.asarray(wav), n_fft, hop, pad_mode="constant")
+    _close(got.numpy(), np.asarray(want), "constant pad vs JAX")
+    ref = torch.stft(torch.from_numpy(wav), n_fft, hop, n_fft,
+                     torch.from_numpy(stft.hann_window(n_fft)), center=True,
+                     pad_mode="constant", return_complex=True)
+    _close(got.numpy(), ref.numpy(), "constant pad vs torch.stft")
+
+
+@pytest.mark.parametrize("power", [1.0, 2.0])
+def test_mel_spectrogram_power_matches_jax(wav, power):
+    """ECAPA's fbank features: the mel of |STFT| ** power."""
+    got = stft.mel_spectrogram(torch.from_numpy(wav), 16000, 400, 160, 80, power=power)
+    want = jstft.mel_spectrogram(jnp.asarray(wav), 16000, 400, 160, 80, power=power)
+    _close(got.numpy(), np.asarray(want), f"mel power {power}")

@@ -6,7 +6,9 @@ the caller — so the port itself never sees JAX. The port keeps the JAX
 names and layouts (dense kernels ``[in, out]``, layers stacked on a leading
 ``L``, conv kernels ``[K, Cin, Cout]``, the Vocos ``c_attn`` fused qkv, the
 tied embedding as LM head), so converting is a copy to ``device`` in the
-right dtype.
+right dtype. The RLHF reward models (Whisper, WavLM, ECAPA) keep the JAX
+trees too (conv kernels ``[K, Cin, Cout]``, transformer layers stacked), so
+their converters are fp32 copies with a shape check.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from tts_max_tpu_torch.models.codec.discriminator import MPDConfig, MSDConfig
 from tts_max_tpu_torch.models.codec.encoder import EncoderConfig
 from tts_max_tpu_torch.models.codec.vocos import VocosConfig
 from tts_max_tpu_torch.models.codec.w2vbert import W2VBertConfig
+from tts_max_tpu_torch.models.wavlm import WavLMConfig
+from tts_max_tpu_torch.models.whisper import WhisperConfig
 from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.models.llama import LlamaConfig
 
@@ -140,4 +144,37 @@ def msd_from_numpy(tree, cfg: MSDConfig, device="cuda"):
                          f"{len(cfg.fft_sizes)}")
     _check("first spectral conv kernel", params[0]["layers"][0]["kernel"],
            (cfg.channels, 1, cfg.kernel_sizes[0], cfg.kernel_sizes[0]))
+    return params
+
+
+def whisper_from_numpy(tree, cfg: WhisperConfig, device="cuda", dtype=torch.float32):
+    """Whisper parameters (``models/whisper.py``), in ``dtype``."""
+    dev = resolve_device(device)
+    params = _tree(tree, lambda a, key: torch.from_numpy(a.astype(np.float32)).to(dev, dtype))
+    _check("conv1 kernel", params["encoder"]["conv1"]["kernel"], (3, cfg.n_mels, cfg.d_model))
+    _check("decoder embedding", params["decoder"]["embed"], (cfg.vocab_size, cfg.d_model))
+    _check("stacked decoder fc1 kernel", params["decoder"]["layers"]["fc1"]["kernel"],
+           (cfg.decoder_layers, cfg.d_model, cfg.ffn_dim))
+    return params
+
+
+def wavlm_from_numpy(tree, cfg: WavLMConfig, device="cuda"):
+    """WavLM parameters (``models/wavlm.py``), all fp32."""
+    params = _fp32(tree, device)
+    if len(params["convs"]) != len(cfg.conv_dim):
+        raise ValueError(f"{len(params['convs'])} feature convs, config has "
+                         f"{len(cfg.conv_dim)}")
+    _check("stacked q kernel", params["layers"]["q"]["kernel"],
+           (cfg.num_layers, cfg.hidden_size, cfg.hidden_size))
+    _check("relative position embedding", params["rel_attn_embed"],
+           (cfg.num_buckets, cfg.num_heads))
+    return params
+
+
+def ecapa_from_numpy(tree, cfg, device="cuda"):
+    """ECAPA-TDNN parameters (``training/rlhf/ecapa.py``'s ``ECAPAConfig``),
+    all fp32."""
+    params = _fp32(tree, device)
+    _check("layer1 kernel", params["layer1"]["conv"]["kernel"], (5, cfg.feat_dim, cfg.channels))
+    _check("embedding kernel", params["linear"]["kernel"], (2 * cfg.cat_channels, cfg.emb_dim))
     return params

@@ -39,6 +39,11 @@ def extension_tokens(codebook_size: int = constants.CODEBOOK_SIZE) -> list[str]:
     return sorted(new_tokens)
 
 
+def extract_speech_ids(text: str) -> list[int]:
+    """The N of every "<|s_N|>" in ``text``, in order."""
+    return [int(m) for m in re.findall(r"<\|s_(\d+)\|>", text)]
+
+
 @dataclass
 class SpeechVocab:
     """Dense id-level mapping between codec codes and token ids."""

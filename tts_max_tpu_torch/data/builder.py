@@ -55,9 +55,18 @@ def build_dataset(
     if dataset_config is not None and getattr(
         dataset_config, "enable_rlhf_training", False
     ):
-        raise NotImplementedError(
-            "enable_rlhf_training: the RLHF dataset comes with the RLHF slice "
-            "of the port (ROADMAP.md, queue 1 item 3)"
+        from tts_max_tpu_torch.training.rlhf.dataset import TtsRLHFDataset
+
+        return (
+            TtsRLHFDataset(
+                dataset_name=dataset_name,
+                samples=samples,
+                codes=codes,
+                indexes=indexes,
+                tokenizer=tokenizer,
+                text_normalizer=text_normalizer,
+            ),
+            dataset_name,
         )
     return (
         TtsFineTuningDataset(

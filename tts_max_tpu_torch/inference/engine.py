@@ -269,6 +269,18 @@ class InferenceEngine:
                                    sampling_seed, sampling, min_tokens))
         return rid
 
+    def update_params(self, params: Any) -> None:
+        """Serve ``params`` from now on (new weights of the same shapes, on
+        the engine's device): the parameter tree and the vocab window's
+        slice of the head, which the engine keeps from construction. The
+        caches and slots are left as they are; call it between runs."""
+        if llama.params_device(params) != self.device:
+            raise ValueError(f"params live on {llama.params_device(params)}, "
+                             f"not on {self.device}")
+        self.params = params
+        if self.vocab_window:
+            self._head = llama.slice_logits_head(params, self.cfg, *self.vocab_window)
+
     def has_work(self) -> bool:
         return (bool(self._queue) or bool(self._parked_entries)
                 or bool(self._pending_parks) or any(s.request for s in self._slots)

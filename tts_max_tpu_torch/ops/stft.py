@@ -3,8 +3,10 @@ of the codec's ISTFT head (irfft, windowed overlap-add, division by the
 window envelope, "same" padding), and for GAN training the forward STFT
 (``torch.stft``-compatible with a Hann window: centered and reflect-padded
 unless ``center=False``, a window shorter than ``n_fft`` zero-padded to the
-middle), the Slaney mel filter bank (numpy, float64, as torchaudio's
-``norm='slaney', mel_scale='slaney'``) and the magnitude mel spectrogram.
+middle; zero-padded with ``pad_mode="constant"``, as DNSMOS's features
+are), the Slaney mel filter bank (numpy, float64, as torchaudio's
+``norm='slaney', mel_scale='slaney'``) and the mel spectrogram of the
+magnitude (or of its ``power``, ECAPA's fbank features).
 """
 
 from __future__ import annotations
@@ -65,12 +67,13 @@ def frame_signal(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
 
 
 def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int | None = None,
-         center: bool = True) -> torch.Tensor:
-    """Complex STFT with a Hann window, x: [B, L] -> [B, n_fft//2+1, T]."""
+         center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
+    """Complex STFT with a Hann window, x: [B, L] -> [B, n_fft//2+1, T].
+    ``pad_mode`` ("reflect" or "constant", zeros) pads the centered signal."""
     window = _window(x.device, win_length or n_fft, n_fft)
     if center:
         p = n_fft // 2
-        x = F.pad(x[:, None], (p, p), mode="reflect")[:, 0]
+        x = F.pad(x[:, None], (p, p), mode=pad_mode)[:, 0]
     spec = torch.fft.rfft(frame_signal(x, n_fft, hop_length) * window, n=n_fft, dim=-1)
     return spec.transpose(-1, -2)
 
@@ -111,8 +114,10 @@ _mel = cached_constant(mel_filterbank)  # (device, sample_rate, n_fft, n_mels)
 
 
 def mel_spectrogram(x: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
-                    n_mels: int) -> torch.Tensor:
-    """torchaudio ``MelSpectrogram(power=1, center=True, norm='slaney',
+                    n_mels: int, power: float = 1.0) -> torch.Tensor:
+    """torchaudio ``MelSpectrogram(power=power, center=True, norm='slaney',
     mel_scale='slaney')``: x [B, L] -> [B, n_mels, T]."""
     mag = stft(x, n_fft, hop_length).abs()
+    if power != 1.0:
+        mag = mag ** power
     return torch.einsum("bft,fm->bmt", mag, _mel(x.device, sample_rate, n_fft, n_mels))
