@@ -33,11 +33,17 @@ quantized: int8 and int4-g64, greedy ids) and through the paged engine
 under each paged entry point, on a small codec encoder, through one fp32
 train step (kernels A and A' against the plain versions: loss, every grad,
 the updated params), through one tiny GAN step (cuDNN conv2d, cuFFT) and
+through the mesh train step in an NCCL group of world size 1 (fsdp and
+dp, against the one-device step, with the collectives it must make) and
 through the RLHF slice's small checks (a GRPO loss, its grads and one step;
 a small Whisper's greedy tokens; a DNSMOS-shaped ONNX graph). Then it trains Llama-3.2-1B at full width through the
 SFT entry point (``tts_max_tpu_torch.training.main`` on
 ``example/configs/sft.json``, 8 steps on a seeded dataset the port's
-``codes_io`` writes, a checkpoint, the final model, a one-step resume), and
+``codes_io`` writes, a checkpoint, the final model, a one-step resume),
+under torchrun's variables for one rank, so that it trains through an NCCL
+group of world size 1 with sft.json's fsdp strategy (every split leaf
+gathered where it is used, its grads reduce-scattered, the checkpoint and
+final model gathered), and
 drives the main paths at
 the full width of Llama-3.2-1B, the full Vocos decoder and the full codec
 encoder with wav2vec-BERT 2.0, random weights from seeds: text and a 5 s or
@@ -69,7 +75,8 @@ validation, then runs the random-phrases validator on the trained weights;
 qq measures quantization quality
 (``tools.quant_quality``, int8 and int4-g128, kernel Q); g1 trains the
 codec decoder as a GAN at full width (``training.codec.gan_loop``, 8 steps
-on v1's dataset from q1's decoder checkpoint as written, no host
+on v1's dataset from q1's decoder checkpoint as written, data-parallel
+through an NCCL group of world size 1, no host
 sync inside a step, one step traced by ``utils/profiling.trace`` for its
 device-busy share); r1 runs two GRPO steps through
 ``training.rlhf.main`` on ``example/configs/rlhf.json`` (one prompt a step,
@@ -84,7 +91,8 @@ the repository's Llama-3-style ``tokenizer.json`` copied in
 GAN step runs on the card and the CPU among the small-model checks.
 Launch counters,
 set to 0 before each path and read after it, must equal what that path's
-requests and the engines' own counts imply.
+requests and the engines' own counts imply; so must the collectives'
+counters (``parallel/collectives.py``) after the SFT runs and g1.
 The next-to-last lines are a JSON summary of the kernels and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run ends with a nonzero exit and no result
@@ -1262,6 +1270,92 @@ def check_small_train() -> None:
         f"step on the card's grads (tol 1e-6)")
 
 
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """torchrun's variables for one rank, meeting on a free local port, set
+    around a call and removed after: the entry points called inside join
+    an NCCL group of world size 1 (``parallel/mesh.initialize_distributed``)
+    and end it on return."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_small_nccl_step() -> None:
+    """The mesh train step through an NCCL group of world size 1 against the
+    one-device step, on the card, fp32, from the same weights and batch (2
+    micro-steps, remat, the chunked loss), under fsdp (every split leaf
+    gathered, its grad reduce-scattered) and dp: the loss and tokens equal,
+    the grad norm within 1e-6 (the split leaves' squares are added after the
+    whole ones'), every param within 1e-7, and the collectives the step's
+    structure implies."""
+    import torch.distributed as dist
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.parallel import collectives, mesh as pmesh
+    from tts_max_tpu_torch.training import optim, train_step as ts
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, rope_theta=10000.0,
+                            use_llama3_rope_scaling=False, max_seq_len=256,
+                            dtype=torch.float32, remat=True)
+    params = llama.init_params(cfg, seed=7, device="cuda")
+    rng = np.random.default_rng(8)
+    ids = rng.integers(0, cfg.vocab_size, (2, 2, 200)).astype(np.int32)
+    labels = ids.copy()
+    labels[..., :20] = -100
+    batch = {"input_ids": ids, "labels": labels}
+    tx = optim.create_optimizer(1e-3)
+    p1, _, m1 = ts.train_step(params, tx.init(params), batch, cfg=cfg, tx=tx,
+                              loss_chunk_size=64)
+    L, A = cfg.n_layers, 2
+    lines = []
+    with nccl_world_of_one():
+        env = pmesh.initialize_distributed("cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"small NCCL step: backend {dist.get_backend()}")
+            for strategy in ("fsdp", "dp"):
+                mesh = pmesh.build_mesh((1, 1, 1), strategy)
+                step = ts.make_train_step(mesh, cfg, tx, params, 1.0, 64)
+                p, o = step.shard(params, tx.init(params))
+                collectives.reset_counts()
+                p2, _, m2 = step(p, o, batch)
+                got = collectives.counts()
+                split = strategy == "fsdp"
+                want = dict(all_reduce_sum=4 if split else 3,
+                            all_gather=1 + A * 2 * 7 * L if split else 0,
+                            reduce_scatter_sum=A * 7 * L + 1 if split else 0, barrier=0)
+                p2 = step.layout.gather(p2)
+                worst = max(max_err(a, dict(optim.tree_items(p1))[path])
+                            for path, a in optim.tree_items(p2))
+                if not ((m2.loss, m2.tokens) == (m1.loss, m1.tokens)
+                        and abs(m2.grad_norm - m1.grad_norm) <= 1e-6 * m1.grad_norm
+                        and worst <= 1e-7 and got == want):
+                    raise AssertionError(f"small NCCL step {strategy}: {m2} vs {m1}, params "
+                                         f"{worst:.2e}, collectives {got} (want {want})")
+                lines.append(f"{strategy} collectives {got}, params within {worst:.1e}")
+        finally:
+            pmesh.destroy_distributed(env)
+    log(f"small train step through NCCL at world size 1 vs the one-device step (fp32, "
+        f"2 x 2 x 200, remat, chunked loss): loss {m1.loss:.6f} equal, grad norm "
+        f"{m1.grad_norm:.6f}; " + "; ".join(lines))
+
+
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                          "chip_smoke_train")
 TRAIN_STEPS = 8
@@ -1326,12 +1420,17 @@ def run_training(counters, validation) -> dict:
     prompt-continuation quality validation after its checkpoint
     (``save_steps`` 1) with ``validation`` (q1: decoder and encoder
     checkpoint paths and a prompt wav), which must write
-    ``continuations/9/continuation_0.wav``, finite. Returns the launch counts of both runs; the output stays under
-    ``TRAIN_DIR`` for c1."""
+    ``continuations/9/continuation_0.wav``, finite. Both runs go through an
+    NCCL group of world size 1 (``nccl_world_of_one``): sft.json's
+    ``strategy: fsdp`` then splits every rule-sharded leaf into one block,
+    and the collectives each run makes must be what its steps, eval, saves
+    and validation imply. Returns the launch counts of both runs; the
+    output stays under ``TRAIN_DIR`` for c1."""
     import shutil
 
     from tts_max_tpu_torch.inference import quality
     from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.parallel import collectives
     from tts_max_tpu_torch.training import main as train_main
 
     path, cfg, changes, data = write_sft_config(TRAIN_DIR)
@@ -1351,12 +1450,15 @@ def run_training(counters, validation) -> dict:
         f"{shutil.disk_usage(TRAIN_DIR).free / 2**30:.1f} GiB")
 
     _zero(counters)
+    collectives.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS)])
+    with nccl_world_of_one():
+        res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS)])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     got = _counts(counters)
+    calls = collectives.counts()
     losses = [m.loss for _, m, _, _ in res.steps]
     if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
             and losses[-1] < losses[0]):
@@ -1368,6 +1470,8 @@ def run_training(counters, validation) -> dict:
     want.update(flash_attention=L * (2 * TRAIN_STEPS + eval_batches),
                 flash_attention_bwd=L * TRAIN_STEPS)
     _check_counts("SFT", got, want)
+    _check_collectives("SFT", calls, sft_collectives(L, TRAIN_STEPS, eval_batches, saves=1,
+                                                     validations=0, logs=1))
     out = changes["output_dir"]
     ckpt = os.path.join(out, "checkpoints", str(TRAIN_STEPS), "state.pt")
     final = os.path.join(out, "final_model", "model.safetensors")
@@ -1382,13 +1486,15 @@ def run_training(counters, validation) -> dict:
         + " ".join(f"{x:.4f}" for x in losses)
         + f"; grad norms " + " ".join(f"{m.grad_norm:.3f}" for _, m, _, _ in res.steps))
     log(f"  SFT train tokens/s (tools/bench_train.py's metric, padded batch tokens / step "
-        f"time, median of steps 3-{TRAIN_STEPS}): {tok_s:.0f}; ms/step {ms_step:.1f} "
+        f"time, median of steps 3-{TRAIN_STEPS}): {tok_s:.0f}; ms/step {ms_step:.1f} through "
+        f"an NCCL group of world size 1 with fsdp's gathers (one device, no group: "
+        f"352.3-357.1 ms/step in PERF.md, H100 80GB HBM3 at 700 W) "
         f"(step seconds {' '.join(f'{s:.3f}' for s in secs)}; padded tokens a step "
         f"{toks}); peak torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
         f"checkpoint {os.path.getsize(ckpt) / 2**30:.2f} GiB saved in "
         f"{res.checkpoint_seconds[-1]:.2f} s; final_model "
         f"{os.path.getsize(final) / 2**30:.2f} GiB in {res.final_model_seconds:.2f} s; "
-        f"launches {got}; {gpu_line()}")
+        f"launches {got}; collectives {calls}; {gpu_line()}")
     del res
 
     cfg["checkpointing"]["only_load_model_weights"] = False
@@ -1400,11 +1506,15 @@ def run_training(counters, validation) -> dict:
     with open(path, "w") as f:
         json.dump(cfg, f)
     _zero(counters)
+    collectives.reset_counts()
     t0 = time.perf_counter()
-    with _WavRecorder(quality) as rec:
+    with _WavRecorder(quality) as rec, nccl_world_of_one():
         res = train_main.main(argv)
     resume_s = time.perf_counter() - t0
     got2 = _counts(counters)
+    calls2 = collectives.counts()
+    _check_collectives("SFT resume", calls2, sft_collectives(L, 1, 0, saves=1, validations=1,
+                                                             logs=1))
     if not ([s for s, _, _, _ in res.steps] == [TRAIN_STEPS + 1]
             and res.statistics.step == TRAIN_STEPS + 1 and np.isfinite(res.steps[0][1].loss)
             and os.path.isfile(os.path.join(out, "checkpoints", str(TRAIN_STEPS + 1),
@@ -1427,8 +1537,37 @@ def run_training(counters, validation) -> dict:
         f"{res.checkpoint_seconds[-1]:.2f} s, wall {resume_s:.1f} s; q1 prompt-continuation "
         f"validation (save_steps 1, the 5 s prompt): {steps} tokens, "
         f"{_check_wav_file('q1', wav) / 16000:.2f} s of audio written finite; "
-        f"launches {got2}")
+        f"launches {got2}; collectives {calls2}")
     return {k: got[k] + got2[k] for k in got}
+
+
+def sft_collectives(L: int, steps: int, eval_batches: int, saves: int, validations: int,
+                    logs: int) -> dict:
+    """The collectives of one ``training.main`` run under fsdp, by the
+    step's structure (``ShardedTrainStep``), at one micro-step a step with
+    remat and tied embeddings: 7 split leaves a layer and the embedding.
+    A step gathers the embedding once and each layer's leaves twice (its
+    forward and its recompute), reduce-scatters each layer's grads and the
+    embedding's once, and all-reduces four times (the valid-token counts,
+    the loss terms, the whole leaves' grads, the shards' norm). An eval
+    batch gathers the embedding and each layer once and all-reduces its
+    sums once, and the statistics' sum of each eval and log is one more.
+    A checkpoint gathers every split leaf of the params, mu and nu; a
+    validation (and building the validator) and the final model gather
+    the params; each save and the final model end at a barrier."""
+    leaves = 7 * L + 1
+    split = 8  # the stacked leaves and the embedding, gathered whole
+    return dict(
+        all_gather=steps * (1 + 2 * 7 * L) + eval_batches * (1 + 7 * L) + saves * 3 * split
+        + (validations + (1 if validations else 0)) * split + split,
+        reduce_scatter_sum=steps * leaves,
+        all_reduce_sum=4 * steps + eval_batches + (1 if eval_batches else 0) + logs,
+        barrier=saves + 1)
+
+
+def _check_collectives(label: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: collectives {got}, expected {want}")
 
 
 def check_small_engine(tok, sv) -> None:
@@ -3185,11 +3324,16 @@ def run_gan(ds: str, dec_path: str, counters) -> dict:
     G1_SAVE (the last checkpoint kept). Every loss must be finite, the FSQ
     quantizer the steps ran with bitwise the checkpoint's, 4 generated
     and 4 true wavs written finite, ``model_config.json`` must read back,
-    and no host sync may fall inside a step. Returns the launch counts
-    (none: the GAN step runs no Pallas kernel in the JAX package)."""
+    and no host sync may fall inside a step. The run goes through an NCCL
+    group of world size 1 (``nccl_world_of_one``): the data-parallel step,
+    whose collectives must be three all-reduces a step (the
+    discriminators' grads, the generator's, the six losses) and two
+    barriers a save. Returns the launch counts (none: the GAN step runs no
+    Pallas kernel in the JAX package)."""
     import shutil
 
     from tts_max_tpu_torch.models.codec import api
+    from tts_max_tpu_torch.parallel import collectives
     from tts_max_tpu_torch.training import optim
     from tts_max_tpu_torch.training.codec import gan, gan_loop
 
@@ -3204,16 +3348,21 @@ def run_gan(ds: str, dec_path: str, counters) -> dict:
     with open(path, "w") as f:
         json.dump(cfg, f)
     _zero(counters)
+    collectives.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with StepProbe(gan, "gan_train_step", G1_TRACED, os.path.join(GAN_DIR, "trace")) \
-            as probe, _WavRecorder(gan_loop) as rec:
+            as probe, _WavRecorder(gan_loop) as rec, nccl_world_of_one():
         res = gan_loop.main(["--config_path", path, "--decoder_checkpoint", dec_path,
                              "--total_steps", str(G1_STEPS), "--device", "cuda"])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     got = _counts(counters)
     _check_counts("g1 GAN", got, _want(counters))
+    calls = collectives.counts()
+    _check_collectives("g1 GAN", calls, dict(
+        all_reduce_sum=3 * G1_STEPS, all_gather=0, reduce_scatter_sum=0,
+        barrier=2 * (G1_STEPS // G1_SAVE)))
     out = cfg["output_dir"]
     losses = [v for _, v, _ in res.steps]
     if not (len(losses) == G1_STEPS and all(np.isfinite(list(v.values())).all()
@@ -3238,8 +3387,10 @@ def run_gan(ds: str, dec_path: str, counters) -> dict:
         f"2/3/5/7/11, MSD 8 resolutions, batch {cfg['training']['batch_size']} x "
         f"{cfg['codec']['code_window_size']} codes; changed: dataset -> v1's, output_dir, "
         f"save_steps 500 -> {G1_SAVE}, keep 5 -> 1; from q1's seeded decoder checkpoint) "
-        f"{G1_STEPS} steps in {wall:.1f} s: ms/step (median of steps 2-{G1_STEPS} but the "
-        f"traced {G1_TRACED}, each to its loss read) {ms:.1f}; step seconds "
+        f"{G1_STEPS} steps in {wall:.1f} s through an NCCL group of world size 1: ms/step "
+        f"(median of steps 2-{G1_STEPS} but the traced {G1_TRACED}, each to its loss read) "
+        f"{ms:.1f} (one device, no group: 186.3-250.0 in PERF.md, H100 80GB HBM3 at 700 W); "
+        f"collectives {calls}; step seconds "
         + " ".join(f"{s:.3f}" for s in secs)
         + f"; peak torch.cuda.max_memory_allocated {peak / 2 ** 30:.2f} GiB; checkpoint "
         f"({_gib(os.path.join(out, 'checkpoints')):.2f} GiB) seconds "
@@ -3891,6 +4042,7 @@ def main() -> int:
     check_small_engine(tok, sv)
     check_small_encoder()
     check_small_train()
+    check_small_nccl_step()
     check_small_gan()
     check_small_rlhf()
     counters = [flash_attention, flash_attention_bwd, flash_decode_attention,

@@ -801,3 +801,65 @@ def test_onnx_graph_on_the_card_matches_the_cpu():
     assert (out.cpu() - ref).abs().max() <= 1e-5 * max(float(ref.abs().max()), 1.0)
     on_card = g.on_device[torch.device("cuda", torch.cuda.current_device())]
     assert on_card["w"].device.type == "cuda" and isinstance(on_card["ax"], np.ndarray)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["fsdp", "dp"])
+def test_world_size_one_nccl_step_matches_the_one_device_step(strategy, monkeypatch):
+    """One train step through an NCCL group of world size 1 (the mesh step:
+    under fsdp every split leaf gathered and its grad reduce-scattered, the
+    whole grads all-reduced) equals the one-device step on the card from the
+    same fp32 weights and batch (two micro-steps, remat, the chunked loss).
+    At world size 1 the collectives copy, sum one term and reduce over one
+    rank, so the loss and tokens are equal; the grad norm adds the split
+    leaves' squares after the whole ones' (an fp32 reassociation: rtol
+    1e-6), which moves the clip scale and so the params by at most a few
+    ulps of lr (atol 1e-7)."""
+    import socket
+
+    import numpy as np
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.parallel import collectives, mesh as pmesh
+    from tts_max_tpu_torch.training import optim, train_step as ts
+
+    _cuda()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+    cfg = llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, rope_theta=10000.0,
+                            use_llama3_rope_scaling=False, max_seq_len=128,
+                            dtype=torch.float32, remat=True)  # the kernels' head_dim
+    params = llama.init_params(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 256, (2, 2, 128)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :, :7] = -100
+    batch = {"input_ids": ids, "labels": labels}
+    tx = optim.create_optimizer(1e-3)
+    p1, o1, m1 = ts.train_step(params, tx.init(params), batch, cfg=cfg, tx=tx,
+                               loss_chunk_size=64)
+    env = pmesh.initialize_distributed("cuda")
+    try:
+        mesh = pmesh.build_mesh((1, 1, 1), strategy)
+        step = ts.make_train_step(mesh, cfg, tx, params, 1.0, 64)
+        p, o = step.shard(params, tx.init(params))
+        collectives.reset_counts()
+        p2, o2, m2 = step(p, o, batch)
+        calls = collectives.counts()
+        p2 = step.layout.gather(p2)
+    finally:
+        pmesh.destroy_distributed(env)
+    assert (m2.loss, m2.tokens) == (m1.loss, m1.tokens)
+    assert m2.grad_norm == pytest.approx(m1.grad_norm, rel=1e-6)
+    for (path, a), (_, b) in zip(optim.tree_items(p2), optim.tree_items(p1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7, msg=path)
+    L, A = cfg.n_layers, 2
+    split = 7 * L + 1 if strategy == "fsdp" else 0
+    assert calls["all_gather"] == (1 + A * 2 * 7 * L if split else 0)
+    assert calls["reduce_scatter_sum"] == (A * 7 * L + 1 if split else 0)
+    assert calls["all_reduce_sum"] == (4 if split else 3)

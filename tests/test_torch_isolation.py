@@ -4,7 +4,8 @@ nothing of ``tts_max_tpu``, no ``transformers``, ``tokenizers``, ``regex``,
 of them), and nothing of the repository's ``tools`` package (its CLIs are
 JAX's; the port has its own in ``tts_max_tpu_torch/tools``); nor do the
 scripts that drive it on the card (``chip_smoke.py``,
-``tools/profile_torch_synthesis.py``)."""
+``bench_sft_ranks.py``, ``tools/profile_torch_synthesis.py``), nor the rank
+of its gloo tests (``tests/_torch_dist_worker.py``)."""
 
 import pathlib
 import re
@@ -13,7 +14,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "tts_max_tpu_torch"
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "tools" / "profile_torch_synthesis.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_sft_ranks.py",
+           ROOT / "tools" / "profile_torch_synthesis.py", ROOT / "tests" / "_torch_dist_worker.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
 _BLOCKED = (rf"(?:jax\b|optax\b|orbax\b|transformers\b|tokenizers\b|regex\b|safetensors\b"
@@ -67,7 +69,10 @@ def test_no_jax_or_reference_package_imports_in_sources():
             PKG / "models" / "codec" / "losses.py", PKG / "training" / "codec" / "gan.py",
             PKG / "training" / "codec" / "gan_loop.py",
             PKG / "training" / "codec" / "codec_data.py", PKG / "models" / "whisper.py",
-            PKG / "models" / "wavlm.py", PKG / "utils" / "onnx_lite.py"} | {
+            PKG / "models" / "wavlm.py", PKG / "utils" / "onnx_lite.py",
+            ROOT / "tests" / "_torch_dist_worker.py"} | {
+            PKG / "parallel" / f"{m}.py" for m in (
+                "__init__", "collectives", "mesh", "multihost", "sharding")} | {
             PKG / "training" / "rlhf" / f"{m}.py" for m in (
                 "asr", "dataset", "dnsmos", "ecapa", "grpo", "main", "reward_utils",
                 "rewards")} <= set(scanned)

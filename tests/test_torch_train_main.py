@@ -4,7 +4,7 @@ over a dataset written with the port's ``codes_io.write_shard``. Three steps
 write finite losses to the metrics log, the config, a checkpoint and the
 final model; ``--dry_run`` takes one step and writes nothing; a rerun with a
 higher ``--total_steps`` resumes from the checkpoint and continues the step
-count; what is not ported yet raises. An HF directory as ``model_name``
+count; what is not ported yet (tensor parallelism) raises. An HF directory as ``model_name``
 (a tiny Llama written by JAX's ``save_model_to_hf_dir`` beside the
 Llama-3-style fixture tokenizer) builds the same tokenizer, params and
 dataset ids as JAX's ``build_model_and_tokenizer``, and one fp32 step on the
@@ -101,14 +101,22 @@ def test_dry_run_takes_one_step_and_writes_nothing(tmp_path):
     assert not os.path.exists(cfg["output_dir"])
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
+    """Tensor parallelism (``tp`` over two ranks of torchrun) raises before
+    any rendezvous; a dir without a tokenizer.json raises."""
     path, cfg = _config(tmp_path)
-    cfg["training"]["mesh"] = {"data": 2, "fsdp": 1, "tensor": 1}
+    cfg["training"]["strategy"] = "tp"
     with open(path, "w") as f:
         json.dump(cfg, f)
+    launcher = {"RANK": "0", "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": "1"}
+    for k, v in launcher.items():
+        monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         _run(path)
-    cfg["training"].pop("mesh")
+    for k in launcher:
+        monkeypatch.delenv(k)
+    cfg["training"].pop("strategy")
     cfg["modeling"]["parameters"]["model_name"] = str(tmp_path)  # a dir, no tokenizer.json
     with open(path, "w") as f:
         json.dump(cfg, f)

@@ -326,7 +326,9 @@ def _unbind_layers(params: Params, n_layers: int) -> list[Params]:
     return [pick(stacked, i) for i in range(n_layers)]
 
 
-def _decoder_layer(h, lp, cos, sin, cfg: LlamaConfig):
+def _decoder_layer(h, lp, cos, sin, cfg: LlamaConfig, gather_layer=None):
+    if gather_layer is not None:
+        lp = gather_layer(lp)
     h, _, _ = _attn_block(h, lp, cos, sin, cfg)
     return _mlp_block(h, lp, cfg)
 
@@ -343,21 +345,25 @@ def _dots_context():
     return create_selective_checkpoint_contexts(policy)
 
 
-def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   gather_layer=None) -> torch.Tensor:
     """Causal forward through the layer stack only: tokens [B, S] -> PRE-norm
     hidden states [B, S, D]. Callers apply ``_logits`` (the final norm and
     head) or, in training, a chunked loss that never holds the full
     [B, S, V] logits (``training/train_step.py``). With ``cfg.remat`` each
-    layer runs under ``torch.utils.checkpoint`` (non-reentrant)."""
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant).
+    ``gather_layer`` (FSDP) maps a layer's param shards to its full params
+    inside the layer, so under remat its recompute gathers them again."""
     cos, sin = rope_table(cfg.head_dim, tokens.shape[1], cfg.rope_theta,
                           cfg.use_llama3_rope_scaling, tokens.device)
     h = _embed(params, tokens, cfg)
     for lp in _unbind_layers(params, cfg.n_layers):
         if cfg.remat:
             kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
-            h = checkpoint(_decoder_layer, h, lp, cos, sin, cfg, use_reentrant=False, **kw)
+            h = checkpoint(_decoder_layer, h, lp, cos, sin, cfg, gather_layer,
+                           use_reentrant=False, **kw)
         else:
-            h = _decoder_layer(h, lp, cos, sin, cfg)
+            h = _decoder_layer(h, lp, cos, sin, cfg, gather_layer)
     return h
 
 

@@ -10,8 +10,13 @@ JAX tool's byte format (``data/codes_io.py``); ``data_merger`` joins them.
 
   python -m tts_max_tpu_torch.tools.data_vectorizer --samples_path s.jsonl \\
       --output_dir out [--codec_checkpoint ckpt.pt] [--val_ratio 0.01] \\
-      [--batch_size 8] [--dry_run] [--tiny] [--process_index 0 --process_count 1] \\
+      [--batch_size 8] [--dry_run] [--tiny] [--process_index R --process_count N] \\
       [--device cuda]
+
+``--process_index`` and ``--process_count`` default to the launcher's rank
+and world size (torchrun's ``RANK``/``WORLD_SIZE``, SLURM's), as the JAX
+tool's default reads ``jax.process_index()``; 0 and 1 without a launcher.
+Each process encodes alone: no group is joined.
 
 Without ``--codec_checkpoint`` the encoder has seeded weights and an
 all-zero semantic stream (smoke mode), at full width or, with ``--tiny``,
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from tts_max_tpu_torch.core.constants import CODEC_SAMPLE_RATE
+from tts_max_tpu_torch.parallel.mesh import launcher_env
 from tts_max_tpu_torch.data import codes_io
 from tts_max_tpu_torch.data.audio_io import load_wav
 from tts_max_tpu_torch.data.filtering import DEFAULT_LOAD_FILTERS, apply_filters
@@ -121,12 +127,18 @@ def main(argv=None) -> dict:
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--dry_run", action="store_true")
     parser.add_argument("--tiny", action="store_true", help="tiny random codec (tests/smoke)")
-    parser.add_argument("--process_index", type=int, default=0)
-    parser.add_argument("--process_count", type=int, default=1)
+    parser.add_argument("--process_index", type=int, default=-1,
+                        help="this process's share (default: the launcher's rank, or 0)")
+    parser.add_argument("--process_count", type=int, default=-1,
+                        help="the number of shares (default: the launcher's world, or 1)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu (the plain PyTorch path)")
     args = parser.parse_args(argv)
-    rank, world = args.process_index, args.process_count
+    launcher = launcher_env()
+    rank = (args.process_index if args.process_index >= 0
+            else launcher.rank if launcher else 0)
+    world = (args.process_count if args.process_count > 0
+             else launcher.world_size if launcher else 1)
     setup_logging(rank, silence_nonmain=False)
 
     samples = read_samples_jsonl(

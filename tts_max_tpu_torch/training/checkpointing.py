@@ -11,6 +11,13 @@ asynchronous; ``wait`` is kept for the same call sites).
 The final model is a safetensors file in the port's own format
 (``models/safetensors_io.py``), one tensor per parameter leaf under its
 "/"-joined path.
+
+Over several ranks (a manager given a ``ShardLayout``), every rank takes
+part in gathering the full state leaf by leaf, rank 0 alone keeps each
+gathered leaf on the host and writes the state in the same format, and the
+others drop each leaf at once and wait at a barrier; ``restore`` reads the
+full state on every rank and keeps each rank's shards. A checkpoint is
+therefore the same file whatever the world size, and resumes on any.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from tts_max_tpu_torch.core.config import ExperimentConfig, to_dict
 from tts_max_tpu_torch.models import safetensors_io
+from tts_max_tpu_torch.parallel.multihost import barrier
 from tts_max_tpu_torch.training.optim import tree_items
 from tts_max_tpu_torch.utils.statistics import Statistics
 
@@ -56,14 +64,19 @@ def _like(template, loaded):
 
 class CheckpointManager:
     """Step-numbered checkpoints under ``directory``, the last
-    ``keep_last_n`` kept."""
+    ``keep_last_n`` kept. With ``layout`` (a ``parallel.sharding.ShardLayout``)
+    the params and Adam moments handed in are this rank's shards, and
+    ``is_main`` says whether this rank writes."""
 
-    def __init__(self, directory: str, keep_last_n: int = 10, async_save: bool = False):
+    def __init__(self, directory: str, keep_last_n: int = 10, async_save: bool = False,
+                 layout=None, is_main: bool = True):
         if async_save:
             raise ValueError("the port's checkpoints are written synchronously")
         os.makedirs(directory, exist_ok=True)
         self.directory = os.path.abspath(directory)
         self.keep_last_n = keep_last_n
+        self.layout = layout
+        self.is_main = is_main
         self.save_seconds: list[float] = []  # of every save, in order
 
     def all_steps(self) -> list[int]:
@@ -77,6 +90,15 @@ class CheckpointManager:
     def save(self, step: int, params: Any, opt_state: Any, statistics: Statistics,
              config: ExperimentConfig | None = None) -> None:
         t0 = time.perf_counter()
+        if self.layout is not None:  # every rank gathers, rank 0 alone keeps the host copy
+            params = self.layout.gather(params, to_cpu=True, keep=self.is_main)
+            opt_state = self.layout.gather_opt_state(opt_state, to_cpu=True, keep=self.is_main)
+        if self.is_main:
+            self._write(step, params, opt_state, statistics, config)
+        barrier()  # under a group, the others wait for rank 0's write
+        self.save_seconds.append(time.perf_counter() - t0)
+
+    def _write(self, step, params, opt_state, statistics, config) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -90,7 +112,6 @@ class CheckpointManager:
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.keep_last_n] if self.keep_last_n > 0 else []:
             shutil.rmtree(os.path.join(self.directory, str(old)))
-        self.save_seconds.append(time.perf_counter() - t0)
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is in flight."""
@@ -99,13 +120,18 @@ class CheckpointManager:
                 weights_only: bool = False) -> tuple[Any, Any, Statistics | None]:
         """Restore onto the templates' devices. ``weights_only`` mirrors
         ``only_load_model_weights``: params restored, optimizer state
-        and statistics left fresh (the templates and None)."""
+        and statistics left fresh (the templates and None). With a layout
+        the templates are shards: every rank reads the full state and keeps
+        its own shards."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.directory}")
         path = os.path.join(self.directory, str(step))
         state = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                            weights_only=True)
+        if self.layout is not None:
+            state = {"params": self.layout.shard(state["params"]),
+                     "opt_state": self.layout.shard_opt_state(state["opt_state"])}
         params = _like(params_template, state["params"])
         if weights_only:
             return params, opt_state_template, None

@@ -13,6 +13,13 @@ stepped by its own ``training/optim.AdamW``. JAX runs the generator's
 forward twice, detached and under grad, to the same numbers. There is no
 dropout (JAX passes no dropout rng). Losses stay device scalars: a step
 reads nothing back to the host.
+
+Over a mesh (``make_gan_step(..., mesh=...)``) the step is data-parallel:
+each rank steps on its rows of the global batch, the params stay whole on
+every rank, and each side's grads are averaged over the ranks (one
+all-reduce of a flat fp32 buffer a side) before its clip, as are the six
+losses: every loss is a mean over rows, so with equal rows a rank these
+are the global batch's.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ import torch
 from tts_max_tpu_torch.core.config import CodecTrainingConfig
 from tts_max_tpu_torch.models.codec import discriminator as disc
 from tts_max_tpu_torch.models.codec import losses, vocos
+from tts_max_tpu_torch.parallel import collectives
+from tts_max_tpu_torch.parallel.mesh import BATCH, check_no_tensor_axis
+from tts_max_tpu_torch.parallel.sharding import map_paths
 from tts_max_tpu_torch.training import optim
 
 
@@ -88,6 +98,18 @@ def _grads(loss, tree):
     return fill(tree)
 
 
+def _mean_over(group, tree):
+    """``tree``'s leaves averaged over the group's ranks, through one
+    all-reduce of their fp32 concatenation (None: as they are)."""
+    if group is None:
+        return tree
+    items = list(optim.tree_items(tree))
+    n = torch.distributed.get_world_size(group)
+    summed = dict(zip((p for p, _ in items),
+                      collectives.all_reduce_flat([t for _, t in items], group)))
+    return map_paths(lambda p, t: (summed[p] / n).to(t.dtype), tree)
+
+
 def _clip(grads, max_norm):
     """Scale to a global norm of ``max_norm``; a non-finite norm lets the
     grads through unscaled (JAX's rule)."""
@@ -101,29 +123,29 @@ def gan_train_step(gen_trainable: Any, disc_params: Any, gen_opt_state: Any,
                    disc_opt_state: Any, batch: dict, *, gen_frozen: Any,
                    vocos_cfg: vocos.VocosConfig, mpd_cfg: disc.MPDConfig,
                    msd_cfg: disc.MSDConfig, cfg: CodecTrainingConfig, gen_tx: optim.AdamW,
-                   disc_tx: optim.AdamW, grad_clip: float = 1.0):
+                   disc_tx: optim.AdamW, grad_clip: float = 1.0, group=None):
     """One GAN macro step. batch: {"audio_codes": [B, Tc], "wav": [B, Ts]}
-    tensors on the params' device. Returns the new (gen_trainable,
-    disc_params, gen_opt_state, disc_opt_state, GanMetrics)."""
+    tensors on the params' device (with ``group``, this rank's rows).
+    Returns the new (gen_trainable, disc_params, gen_opt_state,
+    disc_opt_state, GanMetrics)."""
     codes, y_true = batch["audio_codes"], batch["wav"]
     gen_in = optim.tree_map(lambda t: t.detach().requires_grad_(), gen_trainable)
     y_gen = vocos.decode(merge_generator_params(gen_in, gen_frozen), codes, vocos_cfg)
 
     disc_in = optim.tree_map(lambda t: t.detach().requires_grad_(), disc_params)
     d_loss = cfg.lambda_disc * _disc_loss(y_true, y_gen.detach(), disc_in, mpd_cfg, msd_cfg)
-    d_grads = _clip(_grads(d_loss, disc_in), grad_clip)
+    d_grads = _clip(_mean_over(group, _grads(d_loss, disc_in)), grad_clip)
     d_updates, disc_opt_state = disc_tx.update(d_grads, disc_opt_state, disc_params)
     disc_params = optim.apply_updates(disc_params, d_updates)
 
     g_loss, (mel, rms, adv, fm) = generator_losses(
         y_true, y_gen, disc_params["mpd"], disc_params["msd"], mpd_cfg, msd_cfg, cfg)
-    g_grads = _clip(_grads(g_loss, gen_in), grad_clip)
+    g_grads = _clip(_mean_over(group, _grads(g_loss, gen_in)), grad_clip)
     g_updates, gen_opt_state = gen_tx.update(g_grads, gen_opt_state, gen_trainable)
     gen_trainable = optim.apply_updates(gen_trainable, g_updates)
 
-    metrics = GanMetrics(disc_loss=d_loss.detach(), gen_loss=g_loss.detach(),
-                         adv_loss=adv.detach(), fm_loss=fm.detach(), mel_loss=mel.detach(),
-                         rms_loss=rms.detach())
+    metrics = GanMetrics(*_mean_over(group, [t.detach() for t in (d_loss, g_loss, adv, fm,
+                                                                    mel, rms)]))
     return gen_trainable, disc_params, gen_opt_state, disc_opt_state, metrics
 
 
@@ -149,11 +171,11 @@ def create_gan_optimizers(cfg: CodecTrainingConfig, betas=(0.9, 0.95),
 
 
 def make_gan_step(vocos_cfg, mpd_cfg, msd_cfg, cfg, gen_frozen, gen_tx, disc_tx, mesh=None):
-    """The step with its static arguments bound. One device: a mesh raises
-    (data-parallel GAN training is ROADMAP.md queue 1 item 4)."""
+    """The step with its static arguments bound; with a ``parallel.mesh.Mesh``
+    the data-parallel step over its (data, fsdp) ranks (a tensor axis
+    raises: ROADMAP.md queue 1 item 4b)."""
     if mesh is not None:
-        raise NotImplementedError("GAN training over a mesh of more than one device is "
-                                  "ROADMAP.md queue 1 item 4")
+        check_no_tensor_axis(mesh.shape, "GAN training")
     return functools.partial(gan_train_step, gen_frozen=gen_frozen, vocos_cfg=vocos_cfg,
                              mpd_cfg=mpd_cfg, msd_cfg=msd_cfg, cfg=cfg, gen_tx=gen_tx,
-                             disc_tx=disc_tx)
+                             disc_tx=disc_tx, group=mesh.group(BATCH) if mesh else None)

@@ -14,6 +14,14 @@ and discriminators, both optimizers, through ``training/checkpointing``)
 and the fixed 4-sample validation batch decoded, generated and true wavs
 under ``quality/step_<n>/``. Each step's losses are read to the host after
 the step, in one read. It runs on the card unless ``--device cpu``.
+
+Under a launcher (``torchrun --nproc_per_node N -m
+tts_max_tpu_torch.training.codec.gan_loop ...``; world size 1 included) it
+trains data-parallel over ``torch.distributed``: ``batch_size`` is the
+global batch, each rank loads its rows, and the step averages both sides'
+grads over the ranks (``gan.make_gan_step(mesh=...)``). Rank 0 writes
+``model_config.json``, the checkpoints and the validation wavs. (The JAX
+loop builds its step without the mesh, so its ranks would step apart.)
 """
 
 from __future__ import annotations
@@ -25,12 +33,15 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tts_max_tpu_torch.core.config import ExperimentConfig
 from tts_max_tpu_torch.data.audio_io import save_wav
 from tts_max_tpu_torch.data.loader import DataLoader
 from tts_max_tpu_torch.device import full_fp32, resolve_device, to_device_async
 from tts_max_tpu_torch.models.codec import api, discriminator as disc, vocos
+from tts_max_tpu_torch.parallel import mesh as pmesh
+from tts_max_tpu_torch.parallel.multihost import barrier
 from tts_max_tpu_torch.training.checkpointing import CheckpointManager, save_config
 from tts_max_tpu_torch.training.codec import gan
 from tts_max_tpu_torch.training.codec.codec_data import CodecTrainingDataset, codec_collate
@@ -89,8 +100,20 @@ class FixedBatchCodecValidator:
 
 
 def run_training(config: ExperimentConfig, args) -> GanResult | None:
-    setup_logging(0)
+    env = pmesh.initialize_distributed(args.device)
+    try:
+        return _train(config, args, env)
+    finally:
+        pmesh.destroy_distributed(env)
+
+
+def _train(config: ExperimentConfig, args, env) -> GanResult | None:
+    setup_logging(env.global_rank)
     device = resolve_device(args.device)
+    mesh = None
+    if dist.is_initialized():
+        shape = pmesh.mesh_for_strategy("dp", env.world_size)
+        mesh = pmesh.build_mesh(shape, "dp")
     full_fp32()  # the codec trains in fp32, TF32 off
     ccfg = config.codec
     vocos_cfg = (vocos.tiny_vocos_config() if args.tiny else vocos.VocosConfig(
@@ -111,32 +134,37 @@ def run_training(config: ExperimentConfig, args) -> GanResult | None:
     gen_tx, disc_tx = gan.create_gan_optimizers(ccfg, config.training.betas,
                                                 config.training.weight_decay)
     gen_opt, disc_opt = gen_tx.init(gen_trainable), disc_tx.init(disc_params)
-    step_fn = gan.make_gan_step(vocos_cfg, mpd_cfg, msd_cfg, ccfg, gen_frozen, gen_tx, disc_tx)
+    step_fn = gan.make_gan_step(vocos_cfg, mpd_cfg, msd_cfg, ccfg, gen_frozen, gen_tx, disc_tx,
+                                mesh=mesh)
 
     datasets = list(config.train_weighted_datasets) or [args.dataset_dir]
     ds = CodecTrainingDataset(datasets[0], "train", ccfg.code_window_size, vocos_cfg.hop_length,
                               ccfg.sample_rate, config.dataset.min_sample_rate,
                               seed=config.training.seed)
     loader = DataLoader(ds, config.training.batch_size, codec_collate,
-                        seed=config.training.seed, process_index=0, process_count=1)
+                        seed=config.training.seed,
+                        process_index=mesh.index(pmesh.BATCH) if mesh else 0,
+                        process_count=mesh.size(pmesh.BATCH) if mesh else 1)
 
     os.makedirs(config.output_dir, exist_ok=True)
-    save_config(config.output_dir, config)
-    ups = int(np.prod(ccfg.upsample_factors)) if ccfg.upsample_factors else 1
-    api.DecoderConfig(
-        sample_rate=ccfg.sample_rate,
-        token_rate=ccfg.sample_rate // (vocos_cfg.hop_length * ups),
-        hop_length=vocos_cfg.hop_length,
-        upsample_factors=ccfg.upsample_factors,
-        kernel_sizes=ccfg.upsample_kernel_sizes,
-    ).to_json(os.path.join(config.output_dir, "model_config.json"))
+    if env.is_main:
+        save_config(config.output_dir, config)
+        ups = int(np.prod(ccfg.upsample_factors)) if ccfg.upsample_factors else 1
+        api.DecoderConfig(
+            sample_rate=ccfg.sample_rate,
+            token_rate=ccfg.sample_rate // (vocos_cfg.hop_length * ups),
+            hop_length=vocos_cfg.hop_length,
+            upsample_factors=ccfg.upsample_factors,
+            kernel_sizes=ccfg.upsample_kernel_sizes,
+        ).to_json(os.path.join(config.output_dir, "model_config.json"))
 
     val_batch = codec_collate([ds[i] for i in range(min(4, len(ds)))])
     validator = FixedBatchCodecValidator(val_batch, vocos_cfg, gen_frozen,
                                          os.path.join(config.output_dir, "quality"),
                                          ccfg.sample_rate, device)
     mgr = CheckpointManager(os.path.join(config.output_dir, "checkpoints"),
-                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints)
+                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints,
+                            is_main=env.is_main)
 
     stats = Statistics()
     save_steps = config.checkpointing.save_steps
@@ -175,7 +203,9 @@ def run_training(config: ExperimentConfig, args) -> GanResult | None:
             with Timer() as t:
                 mgr.save(stats.step, {"gen": gen_trainable, "disc": disc_params},
                          {"gen": gen_opt, "disc": disc_opt}, stats, config)
-                validator.validate(gen_trainable, stats.step)
+                if env.is_main:
+                    validator.validate(gen_trainable, stats.step)
+                barrier()
             save_seconds.append(t.elapsed)
             log.info("Step %d: checkpoint + validation %.2fs", stats.step, t.elapsed)
     mgr.wait()

@@ -2,8 +2,12 @@
 (counterpart of ``tts_max_tpu/training/evaluation.py``).
 
 The val loss is aggregated per data source; optional max/avg absolute
-parameter values. The cross-process reduction goes through the statistics'
-process sum (the identity in the port's one process).
+parameter values. Each rank records its batches' losses (under a mesh the
+eval step's loss is already the global batch's) and counts, and the sums
+go across ranks through the statistics' process sum (``reduce_fn``), over
+the keys of every source any rank can see (``statistics.source_keys``).
+Under fsdp the health statistics read each leaf whole, gathered one at a
+time, as JAX reads its global arrays.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from tts_max_tpu_torch.training.optim import tree_leaves
+from tts_max_tpu_torch.training.optim import tree_items
+from tts_max_tpu_torch.utils.statistics import source_keys
 
 
 def compute_metrics(
@@ -24,22 +29,26 @@ def compute_metrics(
     prettify: Callable[[dict], dict],
     collect_health_stats: bool = False,
     reduce_fn=None,
+    sources=(),
+    layout=None,
 ) -> dict[str, float]:
+    """``sources``: the val datasets' names; ``layout``: the ``ShardLayout``
+    of ``params`` when they are this rank's shards."""
     loss_sums: dict[str, float] = defaultdict(float)
     counts: dict[str, int] = defaultdict(int)
     for batch in val_batches:
         if not batch:
             continue
-        sources = batch.get("source", ["default"] * len(batch["input_ids"]))
+        seen = batch.get("source", ["default"] * len(batch["input_ids"]))
         loss, _ = eval_step(params, prettify(batch))
         loss = float(loss)
         loss_sums["total"] += loss
         counts["total"] += 1
-        for s in set(sources):
+        for s in set(seen):
             loss_sums[s] += loss
             counts[s] += 1
 
-    keys = sorted(loss_sums)
+    keys = source_keys(loss_sums, sources)
     vals = np.array([loss_sums[k] for k in keys] + [float(counts[k]) for k in keys])
     if reduce_fn is not None:
         vals = np.asarray(reduce_fn(vals))
@@ -51,17 +60,21 @@ def compute_metrics(
             metrics[f"val_loss/{k}"] = float(vals[i] / c)
 
     if collect_health_stats:
-        metrics.update(health_stats(params))
+        metrics.update(health_stats(params, layout))
     return metrics
 
 
 @torch.no_grad()
-def health_stats(params: Any) -> dict[str, float]:
-    """max/avg absolute parameter values."""
-    leaves = tree_leaves(params)
-    absmax = float(torch.stack([x.abs().max().float() for x in leaves]).max())
-    total = sum(x.numel() for x in leaves)
-    abssum = float(sum(x.abs().float().sum() for x in leaves))
+def health_stats(params: Any, layout=None) -> dict[str, float]:
+    """max/avg absolute parameter values; with ``layout`` each sharded leaf
+    is gathered whole for its turn (a collective: every rank calls it)."""
+    absmax, abssum, total = [], 0, 0
+    for path, x in tree_items(params):
+        x = layout.gather_leaf(path, x) if layout is not None else x
+        absmax.append(x.abs().max().float())
+        abssum = abssum + x.abs().float().sum()
+        total += x.numel()
+    absmax, abssum = float(torch.stack(absmax).max()), float(abssum)
     return {
         "health/param_abs_max": absmax,
         "health/param_abs_avg": abssum / max(1, total),

@@ -62,8 +62,10 @@ def run(
     lr_schedule=None,
     metrics_logger: Callable[[int, dict], None] | None = None,
     statistics: Statistics | None = None,
+    layout=None,
 ) -> tuple[Any, Any, Statistics]:
-    """Run training; returns (params, opt_state, statistics)."""
+    """Run training; returns (params, opt_state, statistics). ``layout``: the
+    ``ShardLayout`` of ``params`` when they are this rank's shards."""
     cfg_t = config.training
     accum = cfg_t.gradient_accumulation_steps
     eval_steps = cfg_t.eval_steps
@@ -71,6 +73,9 @@ def run(
     save_steps = config.checkpointing.save_steps
     statistics = statistics or Statistics()
     reduce_fn = make_process_sum()
+    # every source any rank can record, so that the ranks reduce the same keys
+    train_sources = getattr(train_loader.dataset, "sources", ())
+    val_sources = getattr(getattr(val_loader, "dataset", None), "sources", ())
 
     # ------- resume (reference training_loop.py:26-84) -------
     start_step = statistics.step
@@ -111,6 +116,8 @@ def run(
                 prettify_batch,
                 collect_health_stats=config.checkpointing.collect_health_stats,
                 reduce_fn=reduce_fn,
+                sources=val_sources,
+                layout=layout,
             )
             log.info("Eval step %d: %s", statistics.step, metrics)
             if metrics_logger:
@@ -159,7 +166,7 @@ def run(
 
         # ------- logging -------
         if statistics.step % logging_steps == 0 or not keep_training:
-            stats = statistics.logging_stats(reduce_fn)
+            stats = statistics.logging_stats(reduce_fn, train_sources)
             if lr_schedule is not None:
                 stats["learning_rate"] = float(lr_schedule(statistics.step))
             stats["grad_norm"] = float(m.grad_norm)

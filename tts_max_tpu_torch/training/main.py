@@ -6,17 +6,29 @@
 config -> tokenizer and weights (an HF directory's, or the byte tokenizer and
 seeded weights of an architecture) -> weighted datasets and loaders -> steps
 math -> cosine schedule and AdamW -> optional dry-run step -> loop (eval,
-checkpoints with quality validation, resume) -> final model. It runs on one
-device, the card unless ``--device cpu`` is given.
+checkpoints with quality validation, resume) -> final model. It runs on the
+card unless ``--device cpu`` is given.
+
+Under a launcher it trains over ``torch.distributed``, one process a card
+(NCCL; gloo with ``--device cpu``), world size 1 included:
+
+    torchrun --nproc_per_node N -m tts_max_tpu_torch.training.main --config_path cfg.json
+
+(under SLURM, ``srun`` with ``MASTER_ADDR``/``MASTER_PORT`` exported). As in
+the JAX package the mesh comes from ``training.strategy`` and the world
+size (``parallel/mesh.mesh_for_strategy``; ``training.mesh`` is not read):
+``dp``/``ddp`` replicate the params, ``fsdp``/``deepspeed`` shard them and
+Adam's moments; ``batch_size`` is the global batch, which must divide by
+data x fsdp; each rank loads its rows. Rank 0 writes the config, the
+checkpoints, the metrics and the final model. Tensor parallelism (``tp``
+or ``fsdp_tp`` over more than one rank) is ROADMAP.md queue 1 item 4b and
+raises before the rendezvous.
 
 Quality validation (``checkpointing.validation_type`` "random_phrases" or
 "prompt_continuation", with ``--codec_decoder_checkpoint`` and
 ``--codec_encoder_checkpoint``) synthesizes through a ``LocalTtsModel`` on
 the training params after each checkpoint (``inference/quality.py``);
 ``--validation_prompt_wavs`` takes ``wav_path:transcript`` pairs.
-
-Not ported yet: any mesh of more than one device (ROADMAP.md queue 1 item
-4); it raises.
 """
 
 from __future__ import annotations
@@ -30,8 +42,9 @@ import time
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from tts_max_tpu_torch.core.config import ExperimentConfig, Strategy
+from tts_max_tpu_torch.core.config import ExperimentConfig
 from tts_max_tpu_torch.core.tokenization import build_byte_tokenizer, build_tokenizer
 from tts_max_tpu_torch.data import builder
 from tts_max_tpu_torch.data.collate import collate
@@ -39,6 +52,8 @@ from tts_max_tpu_torch.data.loader import DataLoader
 from tts_max_tpu_torch.data.normalization import create as create_normalizer
 from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models import hf_import, llama
+from tts_max_tpu_torch.parallel import mesh as pmesh
+from tts_max_tpu_torch.parallel.multihost import barrier
 from tts_max_tpu_torch.training import optim, train_step as ts
 from tts_max_tpu_torch.training.checkpointing import (
     CheckpointManager,
@@ -92,24 +107,48 @@ def build_model_and_tokenizer(config: ExperimentConfig, device="cuda"):
     return tokenizer, params, cfg
 
 
-def _check_one_device(config: ExperimentConfig) -> None:
-    m = config.training.mesh
-    devices = (1 if m.data == -1 else m.data) * m.fsdp * m.tensor
-    if devices != 1 or config.training.strategy.canonical() is Strategy.FSDP_TP:
-        raise NotImplementedError(
-            f"mesh {dataclasses.asdict(m)} with strategy "
-            f"{config.training.strategy.value} needs more than one device; "
-            "multi-device training is ROADMAP.md queue 1 item 4")
+def world_size_to_come() -> int:
+    """The world size of the group this process is in or will join."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    launcher = pmesh.launcher_env()
+    return launcher.world_size if launcher else 1
+
+
+def check_mesh(config: ExperimentConfig, world: int) -> tuple[int, int, int]:
+    """The strategy's mesh over ``world`` ranks, refused before any
+    rendezvous where it cannot run: JAX's shape errors, a tensor axis (not
+    ported), or a global batch that data x fsdp does not divide."""
+    shape = pmesh.mesh_for_strategy(config.training.strategy, world)
+    pmesh.check_no_tensor_axis(shape)
+    if config.training.batch_size % (shape[0] * shape[1]):
+        raise ValueError(
+            f"batch_size {config.training.batch_size} must be divisible by the "
+            f"data-parallel extent data*fsdp = {shape[0] * shape[1]} of the {shape} mesh")
+    return shape
+
+
+class _FullParamsValidator:
+    """A quality validator handed the full params gathered from the ranks'
+    shards (every rank takes part in the gather)."""
+
+    def __init__(self, validator, layout):
+        self._validator, self._layout = validator, layout
+
+    def validate(self, params, step: int):
+        return self._validator.validate(self._layout.gather(params), step)
 
 
 def build_quality_validator(config: ExperimentConfig, args, params, model_cfg, tokenizer,
-                            device):
+                            device, env=pmesh.EnvironmentContext(), layout=None):
     """The checkpoint-time validator of ``checkpointing.validation_type``, as
     the JAX trainer wires it: the codec decoder and (prompt-caching) encoder
     of ``--codec_*_checkpoint``, a ``LocalTtsModel`` on the training params
     (the validator points it at the latest ones at each checkpoint), and
     ``--validation_prompt_wavs`` as ``wav_path:transcript`` pairs. None
-    without a validation type or a decoder checkpoint."""
+    without a validation type or a decoder checkpoint. With a ``layout``
+    the params are this rank's shards: the model and each validation get
+    them gathered."""
     vtype = config.checkpointing.validation_type
     if not (vtype and vtype != "none" and args.codec_decoder_checkpoint):
         return None
@@ -121,17 +160,32 @@ def build_quality_validator(config: ExperimentConfig, args, params, model_cfg, t
     decoder = api.create_decoder(args.codec_decoder_checkpoint, device=device)
     encoder = api.CachingAudioEncoder(
         api.create_encoder(args.codec_encoder_checkpoint, device=device))
-    tts_model = LocalTtsModel(params, model_cfg, tokenizer, speech_vocab(tokenizer), encoder,
-                              decoder, device=device)
+    tts_model = LocalTtsModel(layout.gather(params) if layout else params, model_cfg,
+                              tokenizer, speech_vocab(tokenizer), encoder, decoder,
+                              device=device)
     prompt_wavs = dict(p.split(":", 1) for p in args.validation_prompt_wavs)
-    return quality.create(vtype, tts_model, config.output_dir, 0, 1,
-                          prompt_wavs=prompt_wavs, prompt_wav_paths=list(prompt_wavs))
+    validator = quality.create(vtype, tts_model, config.output_dir, env.global_rank,
+                               env.world_size, prompt_wavs=prompt_wavs,
+                               prompt_wav_paths=list(prompt_wavs))
+    return _FullParamsValidator(validator, layout) if layout else validator
 
 
 def run_training(config: ExperimentConfig, args) -> TrainResult | None:
-    setup_logging(0)
+    shape = check_mesh(config, world_size_to_come())
+    env = pmesh.initialize_distributed(args.device)
+    try:
+        return _train(config, args, env, shape)
+    finally:
+        pmesh.destroy_distributed(env)
+
+
+def _train(config: ExperimentConfig, args, env, shape) -> TrainResult | None:
+    setup_logging(env.global_rank)
     device = resolve_device(args.device)
-    _check_one_device(config)
+    mesh = (pmesh.build_mesh(shape, config.training.strategy)
+            if dist.is_initialized() else None)
+    log.info("Mesh (data, fsdp, tensor): %s, %s", shape,
+             f"rank {env.global_rank} of {env.world_size}" if mesh else "one process")
 
     tokenizer, params, model_cfg = build_model_and_tokenizer(config, device)
     log.info("Model: %s params, vocab %d, device %s", llama.param_count(params),
@@ -158,8 +212,10 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
 
     collate_fn = functools.partial(collate, pad_token_id=tokenizer.pad_token_id,
                                    max_seq_len=mp.max_seq_len)
-    mk_loader = functools.partial(DataLoader, collate_fn=collate_fn, seed=tcfg.seed,
-                                  process_index=0, process_count=1)
+    mk_loader = functools.partial(
+        DataLoader, collate_fn=collate_fn, seed=tcfg.seed,
+        process_index=mesh.index(pmesh.BATCH) if mesh else 0,
+        process_count=mesh.size(pmesh.BATCH) if mesh else 1)
     train_loader = mk_loader(train_ds, tcfg.batch_size)
     val_loader = mk_loader(val_ds, tcfg.batch_size, shuffle=False) if val_ds else None
 
@@ -175,12 +231,19 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
         else optim.constant_schedule(tcfg.learning_rate))
     tx = optim.create_optimizer(schedule, tcfg.betas, tcfg.weight_decay,
                                 mu_dtype=tcfg.adam_mu_dtype)
+    layout = None
+    if mesh is None:
+        step_fn = functools.partial(ts.train_step, cfg=model_cfg, tx=tx,
+                                    gradient_clip_value=tcfg.gradient_clip_value,
+                                    loss_chunk_size=tcfg.loss_chunk_size)
+        eval_fn = functools.partial(ts.eval_step, cfg=model_cfg,
+                                    loss_chunk_size=tcfg.loss_chunk_size)
+    else:
+        step_fn = ts.make_train_step(mesh, model_cfg, tx, params, tcfg.gradient_clip_value,
+                                     tcfg.loss_chunk_size)
+        eval_fn, layout = step_fn.eval_step, step_fn.layout
+        params = layout.shard(params)  # this rank's shards from here on
     opt_state = tx.init(params)
-    step_fn = functools.partial(ts.train_step, cfg=model_cfg, tx=tx,
-                                gradient_clip_value=tcfg.gradient_clip_value,
-                                loss_chunk_size=tcfg.loss_chunk_size)
-    eval_fn = functools.partial(ts.eval_step, cfg=model_cfg,
-                                loss_chunk_size=tcfg.loss_chunk_size)
 
     if args.dry_run:
         micro = next(iter(train_loader))
@@ -190,9 +253,11 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
         return None
 
     os.makedirs(config.output_dir, exist_ok=True)
-    save_config(config.output_dir, config)
+    if env.is_main:
+        save_config(config.output_dir, config)
     mgr = CheckpointManager(os.path.join(config.output_dir, "checkpoints"),
-                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints)
+                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints,
+                            layout=layout, is_main=env.is_main)
 
     statistics = None
     resume = config.checkpointing.checkpoint_file_to_resume_from
@@ -206,7 +271,7 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
             pass
 
     quality_validator = build_quality_validator(config, args, params, model_cfg, tokenizer,
-                                                device)
+                                                device, env, layout)
 
     history = []
 
@@ -217,18 +282,21 @@ def run_training(config: ExperimentConfig, args) -> TrainResult | None:
         return p, o, m
 
     metrics_logger = MetricsLogger(config.output_dir, experiment_name=config.experiment_name,
-                                   use_wandb=args.use_wandb, is_main=True)
+                                   use_wandb=args.use_wandb, is_main=env.is_main)
     start = statistics.step if statistics else 0
     params, opt_state, stats = run_loop(
         train_step=timed_step, eval_step=eval_fn, params=params, opt_state=opt_state,
         train_loader=train_loader, val_loader=val_loader, config=config,
         total_training_steps=total_steps, steps_per_epoch=steps_per_epoch,
         checkpoint_manager=mgr, quality_validator=quality_validator, lr_schedule=schedule,
-        statistics=statistics, metrics_logger=metrics_logger)
+        statistics=statistics, metrics_logger=metrics_logger, layout=layout)
     metrics_logger.close()
     mgr.wait()
     t0 = time.perf_counter()
-    path = save_final_model(config.output_dir, params)
+    if layout is not None:  # every rank gathers, rank 0 keeps and writes
+        params = layout.gather(params, to_cpu=True, keep=env.is_main)
+    path = save_final_model(config.output_dir, params) if env.is_main else None
+    barrier()
     final_s = time.perf_counter() - t0
     log.info("Final model saved to %s in %.2f s", path, final_s)
     mgr.close()

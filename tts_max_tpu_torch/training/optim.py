@@ -72,9 +72,22 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in fp32 (0-d tensor)."""
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(grads)))
+def global_norm(grads, group=None, sharded=frozenset()) -> torch.Tensor:
+    """sqrt of the sum of every element's square, in fp32 (0-d tensor).
+
+    With ``group``, the leaves whose paths are in ``sharded`` hold this
+    rank's shard of a leaf split over the group: their squares are summed
+    here, then over the group's ranks (one all-reduce), before the whole
+    leaves' (the same on every rank) are added and the root taken."""
+    items = list(tree_items(grads))
+    whole = sum((g.float().square().sum() for p, g in items if p not in sharded),
+                torch.zeros((), dtype=torch.float32, device=items[0][1].device))
+    if group is None or not sharded:
+        return torch.sqrt(whole)
+    from tts_max_tpu_torch.parallel.collectives import all_reduce_sum
+
+    parts = sum(g.float().square().sum() for p, g in items if p in sharded)
+    return torch.sqrt(all_reduce_sum(parts, group) + whole)
 
 
 class AdamW:

@@ -11,7 +11,7 @@ the engine is given it with ``InferenceEngine.update_params`` after every
 update. (The JAX module's engine keeps its first weights for the whole run
 when no trainer/sampler topology is set; the port does not.)
 The JAX module's ``topology`` (a trainer sub-mesh and a sampler sub-mesh)
-waits for multi-device training (ROADMAP.md queue 1 item 4).
+waits for RLHF's trainer/sampler topology (ROADMAP.md queue 1 item 4b).
 
 Objective (group-relative advantages, TRL's num_iterations=1 semantics):
   adv_i = (r_i - mean_group) [/ (std_group + 1e-4) if scale_rewards]

@@ -20,7 +20,7 @@ compute dtype, remat on) or a named architecture's (the byte tokenizer, bf16
 weights from the port's seeded ``init_params``, remat on). Without
 ``--codec_decoder`` the rewards decode with a tiny random Vocos (smoke
 mode). ``--sampler_devices`` above 0 (a trainer sub-mesh and a sampler
-sub-mesh) needs more than one device and raises: ROADMAP.md queue 1 item 4.
+sub-mesh) needs more than one device and raises: ROADMAP.md queue 1 item 4b.
 """
 
 from __future__ import annotations
@@ -119,8 +119,8 @@ def run_training(config: ExperimentConfig, args) -> RLHFResult:
     if args.sampler_devices > 0:
         raise NotImplementedError(
             f"--sampler_devices {args.sampler_devices}: a trainer sub-mesh and a sampler "
-            "sub-mesh need more than one device; multi-device training is ROADMAP.md "
-            "queue 1 item 4")
+            "sub-mesh need more than one device; the trainer/sampler topology is "
+            "ROADMAP.md queue 1 item 4b")
     device = resolve_device(args.device)
     tokenizer, params, model_cfg = build_policy(args, config, device)
     sv = speech_vocab(tokenizer)

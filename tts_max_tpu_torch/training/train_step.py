@@ -1,10 +1,10 @@
 """The SpeechLM training step (counterpart of ``tts_max_tpu/training/train_step.py``).
 
 One call runs every gradient-accumulation micro-step, global-norm clipping
-with a non-finite guard, and the AdamW update, on one device. The JAX
-package's jitted, sharded step (``make_train_step``, ``data_sh_axis1``,
-``_opt_state_shardings``) waits for multi-device training (ROADMAP.md,
-queue 1 item 4).
+with a non-finite guard, and the AdamW update. ``train_step`` runs on one
+device; ``make_train_step(mesh, ...)`` builds the same step over a
+``(data, fsdp, 1)`` mesh of ``torch.distributed`` ranks, each holding its
+rows of the global batch (``ShardedTrainStep``).
 
 The non-finite guard is JAX's: a non-finite global grad norm zeroes the
 grads and the updates, so the parameters stay exactly unchanged while the
@@ -23,6 +23,15 @@ from torch.utils.checkpoint import checkpoint
 
 from tts_max_tpu_torch.core.constants import LOSS_IGNORE_TOKEN_ID
 from tts_max_tpu_torch.models import llama
+from tts_max_tpu_torch.parallel import collectives
+from tts_max_tpu_torch.parallel.mesh import (
+    BATCH,
+    DATA_AXIS,
+    FSDP_AXIS,
+    Mesh,
+    check_no_tensor_axis,
+)
+from tts_max_tpu_torch.parallel.sharding import ShardLayout, map_paths
 from tts_max_tpu_torch.training.optim import AdamW, apply_updates, global_norm, tree_map
 
 
@@ -33,19 +42,23 @@ class StepMetrics(NamedTuple):
     tokens: int  # number of loss tokens
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor):
-    """HF-convention shifted cross entropy: logits[:, :-1] predict
-    labels[:, 1:]; -100 positions are ignored; mean over valid tokens.
-    Returns (loss, number of valid tokens)."""
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of the shifted cross entropy over valid tokens, their number)."""
     logits = logits[:, :-1]
     targets = labels[:, 1:].long()
     valid = targets != LOSS_IGNORE_TOKEN_ID
     safe = torch.where(valid, targets, 0)
     logprobs = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logprobs, -1, safe[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    n = valid.sum()
-    return nll.sum() / n.clamp_min(1), n
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """HF-convention shifted cross entropy: logits[:, :-1] predict
+    labels[:, 1:]; -100 positions are ignored; mean over valid tokens.
+    Returns (loss, number of valid tokens)."""
+    s, n = _nll_sum(logits, labels)
+    return s / n.clamp_min(1), n
 
 
 def _chunk_nll(hc, tc, params, cfg):
@@ -66,6 +79,11 @@ def chunked_causal_lm_loss(params, cfg: llama.LlamaConfig, hidden: torch.Tensor,
     target_logit``, under ``torch.utils.checkpoint`` so the backward pass
     recomputes a chunk's logits instead of storing them: one chunk's
     logits are live at a time. The same value as :func:`causal_lm_loss`."""
+    nll_sum, n_valid = _chunked_nll_sum(params, cfg, hidden, labels, chunk_size)
+    return nll_sum / n_valid.clamp_min(1), n_valid
+
+
+def _chunked_nll_sum(params, cfg, hidden, labels, chunk_size):
     h = hidden[:, :-1]
     t = labels[:, 1:].long()
     T = h.shape[1]
@@ -77,15 +95,22 @@ def chunked_causal_lm_loss(params, cfg: llama.LlamaConfig, hidden: torch.Tensor,
                           use_reentrant=False)
         nll_sum = nll_sum + s
         n_valid = n_valid + k
-    return nll_sum / n_valid.clamp_min(1), n_valid
+    return nll_sum, n_valid
+
+
+def nll_sum(params, cfg: llama.LlamaConfig, batch, loss_chunk_size: int = 0,
+            gather_layer=None):
+    """(the summed cross entropy of a micro-batch, its valid tokens): the
+    loss before its division by the token count."""
+    hidden = llama.forward_hidden(params, cfg, batch["input_ids"], gather_layer)
+    if loss_chunk_size > 0:
+        return _chunked_nll_sum(params, cfg, hidden, batch["labels"], loss_chunk_size)
+    return _nll_sum(llama._logits(hidden, params, cfg), batch["labels"])
 
 
 def loss_fn(params, cfg: llama.LlamaConfig, batch, loss_chunk_size: int = 0):
-    if loss_chunk_size > 0:
-        hidden = llama.forward_hidden(params, cfg, batch["input_ids"])
-        return chunked_causal_lm_loss(params, cfg, hidden, batch["labels"], loss_chunk_size)
-    logits = llama.forward(params, cfg, batch["input_ids"])
-    return causal_lm_loss(logits, batch["labels"])
+    s, n = nll_sum(params, cfg, batch, loss_chunk_size)
+    return s / n.clamp_min(1), n
 
 
 def to_device_batch(batch, device) -> dict:
@@ -139,18 +164,25 @@ def train_step(params, opt_state, batch, *, cfg: llama.LlamaConfig, tx: AdamW,
 
     with torch.no_grad():
         gnorm = global_norm(grads)
-        finite = bool(torch.isfinite(gnorm))
-        if finite:
-            if float(gnorm) > gradient_clip_value:
-                scale = gradient_clip_value / gnorm
-                grads = tree_map(lambda g: g * scale, grads)
-        else:
-            grads = tree_map(torch.zeros_like, grads)
-        updates, new_state = tx.update(grads, opt_state, params)
-        new_params = apply_updates(params, updates) if finite else params
+        new_params, new_state, finite = _clip_and_update(params, opt_state, grads, gnorm, tx,
+                                                         gradient_clip_value)
     metrics = StepMetrics(loss=float(loss), grad_norm=float(gnorm),
                           nonfinite=0.0 if finite else 1.0, tokens=int(toks))
     return new_params, new_state, metrics
+
+
+def _clip_and_update(params, opt_state, grads, gnorm, tx, gradient_clip_value):
+    """Clip to the global norm ``gnorm`` (the same on every rank), guard a
+    non-finite one, and step AdamW: (new params, new state, finite)."""
+    finite = bool(torch.isfinite(gnorm))
+    if finite:
+        if float(gnorm) > gradient_clip_value:
+            scale = gradient_clip_value / gnorm
+            grads = tree_map(lambda g: g * scale, grads)
+    else:
+        grads = tree_map(torch.zeros_like, grads)
+    updates, new_state = tx.update(grads, opt_state, params)
+    return (apply_updates(params, updates) if finite else params), new_state, finite
 
 
 def eval_step(params, batch, *, cfg: llama.LlamaConfig, loss_chunk_size: int = 0):
@@ -159,3 +191,143 @@ def eval_step(params, batch, *, cfg: llama.LlamaConfig, loss_chunk_size: int = 0
     with torch.no_grad():
         loss, toks = loss_fn(params, cfg, batch, loss_chunk_size)
     return float(loss), int(toks)
+
+
+# --- over a mesh -------------------------------------------------------------
+
+
+class _GatherShard(torch.autograd.Function):
+    """A leaf's full value from every rank's shard (all-gather along ``dim``)
+    in the forward; its grad's rank-sum reduce-scattered back to the shard
+    in the backward, summed in fp32 and rounded once to the leaf's dtype."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return collectives.all_gather(shard, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = collectives.reduce_scatter_sum(grad.float(), ctx.dim, ctx.group)
+        return out.to(grad.dtype), None, None
+
+
+class ShardedTrainStep:
+    """The train step over a ``(data, fsdp, 1)`` mesh (JAX's
+    ``make_train_step``), with ``train_step``'s signature and metrics.
+
+    Each rank steps on its rows of the global batch, ``[A, B_local, L]``;
+    ranks may pad to different lengths. The loss is JAX's global-batch
+    mean: the valid tokens of each micro-batch are summed over the ranks
+    first (one all-reduce a step), each rank backpropagates its summed
+    cross entropy over that global count, and the grads are summed over the
+    ranks, in fp32. The logged loss is the rank-sum of those terms.
+
+    FSDP (``mesh.shards_params``): at rest a rank holds its block of every
+    leaf the rules split over ``fsdp`` (``ShardLayout``), and the same block
+    of its Adam moments. A layer's blocks are gathered inside the layer,
+    so under remat its recompute gathers them again, and their grads are
+    reduce-scattered in the backward; the embedding and head are gathered
+    once a step and their grads reduce-scattered once a step. Whole leaves'
+    grads are all-reduced in one flat fp32 buffer. Data-parallel alone
+    (``dp``): every leaf is whole. The clip and the non-finite guard read
+    the norm summed over the ranks, so they agree on every rank; AdamW is
+    elementwise and runs on the shards as they are.
+    """
+
+    def __init__(self, mesh: Mesh, cfg: llama.LlamaConfig, tx: AdamW, params,
+                 gradient_clip_value: float = 1.0, loss_chunk_size: int = 0):
+        check_no_tensor_axis(mesh.shape)
+        self.cfg, self.tx = cfg, tx
+        self.clip, self.chunk = gradient_clip_value, loss_chunk_size
+        self.layout = ShardLayout(params, mesh)
+        self.sharded = self.layout.sharded
+        self.fsdp_group, self.batch_group = mesh.group(FSDP_AXIS), mesh.group(BATCH)
+        self.data_group = (mesh.group(DATA_AXIS)
+                           if mesh.size(DATA_AXIS) > 1 and self.sharded else None)
+        # a layer's leaves, keyed under "layers/", lose the stacked dim
+        self.layer_dims = {p[len("layers/"):]: self.layout.dims[p] - 1
+                           for p in self.sharded if p.startswith("layers/")}
+        self.once = sorted(p for p in self.sharded if not p.startswith("layers/"))
+
+    def shard(self, params, opt_state):
+        """This rank's shards of full params and optimizer state."""
+        return self.layout.shard(params), self.layout.shard_opt_state(opt_state)
+
+    def _gather_layer(self, lp):
+        return map_paths(lambda p, x: (_GatherShard.apply(x, self.layer_dims[p],
+                                                          self.fsdp_group)
+                                       if p in self.layer_dims else x), lp)
+
+    def _with_full(self, params):
+        """``params`` with the once-a-step leaves (embedding, head) gathered."""
+        return map_paths(lambda p, x: self.layout.gather_leaf(p, x) if p in self.once else x,
+                         params)
+
+    def __call__(self, params, opt_state, batch):
+        batch = to_device_batch(batch, llama.params_device(params))
+        ids, labels = batch["input_ids"], batch["labels"]
+        accum = ids.shape[0]
+        n_global = collectives.all_reduce_sum(
+            (labels[:, :, 1:] != LOSS_IGNORE_TOKEN_ID).sum(dim=(1, 2)), self.batch_group)
+        gathered = self._with_full(params)
+        sums, terms = {}, []
+        for a in range(accum):
+            leaves = {}
+
+            def track(p, x):
+                leaves[p] = x.detach().requires_grad_(True)
+                return leaves[p]
+
+            live = map_paths(track, gathered)
+            with torch.enable_grad():
+                s, _ = nll_sum(live, self.cfg, {"input_ids": ids[a], "labels": labels[a]},
+                               self.chunk, self._gather_layer)
+                term = s / n_global[a].clamp_min(1)
+                g = torch.autograd.grad(term, list(leaves.values()))
+            terms.append(term.detach())
+            for p, x in zip(leaves, g):
+                x = x.float() if accum > 1 else x
+                sums[p] = x if p not in sums else sums[p] + x
+        del gathered
+        losses = collectives.all_reduce_sum(torch.stack(terms), self.batch_group)
+        loss = losses.sum() / accum
+        grads = {p: (x / accum if accum > 1 else x) for p, x in sums.items()}
+        for p in self.once:
+            grads[p] = collectives.reduce_scatter_sum(grads[p].float(), self.layout.dims[p],
+                                                      self.fsdp_group)
+        if self.data_group is not None:
+            sh = sorted(self.sharded)
+            grads.update(zip(sh, collectives.all_reduce_flat([grads[p] for p in sh],
+                                                             self.data_group)))
+        whole = [p for p in grads if p not in self.sharded]
+        grads.update(zip(whole, collectives.all_reduce_flat([grads[p] for p in whole],
+                                                            self.batch_group)))
+        # the dtypes the one-device step gives: the leaf's, fp32 under accumulation
+        grads = map_paths(lambda p, x: grads[p].to(torch.float32 if accum > 1 else x.dtype),
+                          params)
+        with torch.no_grad():
+            gnorm = global_norm(grads, self.fsdp_group, self.sharded)
+            new_params, new_state, finite = _clip_and_update(params, opt_state, grads, gnorm,
+                                                             self.tx, self.clip)
+        metrics = StepMetrics(loss=float(loss), grad_norm=float(gnorm),
+                              nonfinite=0.0 if finite else 1.0, tokens=int(n_global.sum()))
+        return new_params, new_state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, params, batch):
+        """(loss, valid tokens) of one eval micro-batch [B_local, L] over the
+        global batch: the ranks' summed cross entropies over their summed
+        counts, the same on every rank."""
+        batch = to_device_batch(batch, llama.params_device(params))
+        s, n = nll_sum(self._with_full(params), self.cfg, batch, self.chunk,
+                       self._gather_layer)
+        v = collectives.all_reduce_sum(torch.stack([s.float(), n.float()]), self.batch_group)
+        return float(v[0] / v[1].clamp_min(1)), int(v[1])
+
+
+def make_train_step(mesh: Mesh, cfg: llama.LlamaConfig, tx: AdamW, params,
+                    gradient_clip_value: float = 1.0, loss_chunk_size: int = 0):
+    """The step over ``mesh`` for full ``params`` (the layout comes from
+    their shapes); ``.shard(params, opt_state)`` gives a rank's state."""
+    return ShardedTrainStep(mesh, cfg, tx, params, gradient_clip_value, loss_chunk_size)

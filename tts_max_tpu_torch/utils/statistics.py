@@ -1,9 +1,12 @@
-"""Per-source metric accumulation (copy of ``tts_max_tpu/utils/statistics.py``
-without its JAX collective).
+"""Per-source metric accumulation (counterpart of ``tts_max_tpu/utils/statistics.py``).
 
 Counters and metric sums are accumulated per data source on the host and
-reduced over a canonically sorted key list, so that a cross-process sum
-(when the port gains one) sees the same keys in every process.
+reduced over a canonically sorted key list. Given the sources every process
+can record (the datasets' names), each process's vector carries all of them,
+zero where it saw none, so that the cross-process sum (``make_process_sum``,
+over ``torch.distributed``) adds the same keys in every process; JAX's keys
+are only the sources the process saw, which differ between processes that
+draw rows of several datasets.
 Serializable to/from plain dicts so it can ride inside checkpoints.
 """
 
@@ -49,26 +52,27 @@ class Statistics:
             self._data_times.pop(0)
 
     # --- reduction ----------------------------------------------------------
-    def _reducible(self) -> dict[str, float]:
+    def _reducible(self, sources=()) -> dict[str, float]:
         out: dict[str, float] = {
             "tokens_processed": float(self.tokens_processed),
             "samples_processed": float(self.samples_processed),
             "audio_processed_sec": float(self.audio_processed_sec),
         }
-        for k in sorted(self.loss_sums):
+        for k in source_keys(self.loss_sums, sources):
             out[f"loss_sum/{k}"] = self.loss_sums[k]
             out[f"loss_count/{k}"] = float(self.loss_counts[k])
         for k in sorted(self.counters):
             out[f"counter/{k}"] = self.counters[k]
         return out
 
-    def logging_stats(self, reduce_fn=None) -> dict[str, float]:
+    def logging_stats(self, reduce_fn=None, sources=()) -> dict[str, float]:
         """Derive loggable metrics; optionally all-reduce sums across processes.
 
         ``reduce_fn`` maps a 1-D np array -> summed 1-D array across processes
-        (see :func:`make_process_sum`). None => single-process.
+        (see :func:`make_process_sum`). None => single-process. ``sources``:
+        every source any process can record (see :func:`source_keys`).
         """
-        red = self._reducible()
+        red = self._reducible(sources)
         keys = sorted(red)
         vals = np.array([red[k] for k in keys], dtype=np.float64)
         if reduce_fn is not None:
@@ -82,6 +86,9 @@ class Statistics:
                 cnt = red.get(f"loss_count/{src}", 0.0)
                 if cnt > 0:
                     stats[f"loss/{src}"] = v / cnt
+            elif k.startswith("loss_count/"):
+                if v > 0:  # a source no process saw in the window is not logged
+                    stats[k] = v
             elif k.startswith("counter/"):
                 stats[k[len("counter/") :]] = v
             else:
@@ -128,18 +135,38 @@ class Statistics:
         return s
 
 
+def source_keys(seen, sources=()) -> list[str]:
+    """The sorted source keys of a reduced vector: "total", every name in
+    ``sources`` and every key in ``seen``. Given ``sources``, a key of
+    ``seen`` outside them raises, since another process's vector would not
+    carry it."""
+    known = {"total", *sources}
+    extra = set(seen) - known
+    if sources and extra:
+        raise ValueError(f"sources {sorted(extra)} are not among {sorted(known)}")
+    return sorted(known | extra)
+
+
 def make_process_sum():
-    """Cross-process sum of a host vector. The port runs one process on one
-    device (multi-process training waits for ROADMAP.md queue 1 item 4), so
-    this is the identity; a run with several ``torch.distributed`` ranks is
-    refused rather than summed wrongly."""
+    """Cross-process sum of a host vector (``fabric.all_reduce``,
+    custom_logging.py:244-245): one ``all_reduce(SUM)`` of it as a float64
+    tensor over the world, on the group's device (the current card under
+    NCCL, the CPU under gloo). The identity without a group."""
+    import torch
     import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process statistics wait for ROADMAP.md queue 1 item 4"
-        )
-    return lambda v: v
+    if not (dist.is_available() and dist.is_initialized()):
+        return lambda v: v
+    from tts_max_tpu_torch.parallel.collectives import all_reduce_sum
+
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+
+    def _sum(v: np.ndarray) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(v, dtype=np.float64)).to(device)
+        return all_reduce_sum(t, None).cpu().numpy()
+
+    return _sum
 
 
 class Timer:
