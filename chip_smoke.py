@@ -6,7 +6,9 @@
 From the root of a checkout, with one CUDA card. It builds the port's CUDA
 kernels from ``tts_max_tpu_torch/csrc`` with nvcc (one process per source,
 in parallel) and holds each against its plain PyTorch version on the card,
-printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``):
+printing the earlier kernels' times beside the redesigned ones' (``PREV_MS``),
+and A, A', B, C and the paged kernel again at a tensor-parallel rank's
+heads of Llama-3.2-1B under TP 2, 4 and 8 (16/4, 8/2, 4/1; ``TP_RANK_HEADS``):
 kernel A (prefill: bf16 on the tensor cores, fp32 on the CUDA cores, batch
 1 and 8, kv_len < S, n_rep 1 and 8), kernel A' (attention's backward, for
 training: SFT's layer at batch 4 x 2048, fp32, D = 128, a tail, kv_len < S,
@@ -43,7 +45,13 @@ SFT entry point (``tts_max_tpu_torch.training.main`` on
 under torchrun's variables for one rank, so that it trains through an NCCL
 group of world size 1 with sft.json's fsdp strategy (every split leaf
 gathered where it is used, its grads reduce-scattered, the checkpoint and
-final model gathered), and
+final model gathered); t1 then trains the same config under ``strategy:
+tp`` for 4 steps in an NCCL group of world size 1 (a tensor axis of one
+rank that still splits every rule-split leaf into one block: the
+row-parallel sums, the entries' grad sums and the vocab-parallel cross
+entropy's reductions all made, each count held to ``tp_sft_collectives``),
+its losses held to the fsdp run's (``TP_LOSS_RTOL``), and resumes one step
+under ``fsdp`` from its checkpoint. It
 drives the main paths at
 the full width of Llama-3.2-1B, the full Vocos decoder and the full codec
 encoder with wav2vec-BERT 2.0, random weights from seeds: text and a 5 s or
@@ -52,7 +60,10 @@ prompt encode split into host features, w2v-bert and the acoustic encoder),
 the serving engines (``inference/engine.py``: paged with prefix caching,
 paged int8 KV, contiguous, paged under the ``grid`` entry point, then with
 prefill-ahead: contiguous beside the same requests without it, and paged
-with the prefix cache), vocoding every completion, speculative decoding
+with the prefix cache; and e-tp: the contiguous bf16, contiguous int8-KV
+and paged engines, and ``generate``, each with ``mesh=`` a ``(1, 1, 1)``
+tensor-parallel mesh in an NCCL group of world size 1 beside the same
+without a mesh, greedy ids identical), vocoding every completion, speculative decoding
 (``inference/speculative.py``: fp32 with the target as its own draft, whose
 ids must equal greedy ``generate``'s, and bf16 with a 2-layer draft beside
 plain ``generate``), and the three serving CLIs (``tts_max_tpu_torch/tools``:
@@ -92,7 +103,11 @@ GAN step runs on the card and the CPU among the small-model checks.
 Launch counters,
 set to 0 before each path and read after it, must equal what that path's
 requests and the engines' own counts imply; so must the collectives'
-counters (``parallel/collectives.py``) after the SFT runs and g1.
+counters (``parallel/collectives.py``: ``counts()`` and ``counts_tp()``)
+after the SFT runs, t1, g1 and e-tp. RLHF's trainer/sampler topology
+(``training/rlhf/topology.py``) needs two ranks on distinct cards, which
+this one-card machine does not have: it is not run here (the gloo tests
+hold it to the JAX package).
 The next-to-last lines are a JSON summary of the kernels and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run ends with a nonzero exit and no result
@@ -351,6 +366,12 @@ PREV_MS = {
 }
 
 
+# a rank's query / KV heads of Llama-3.2-1B (32 / 8) under TP 2, 4 and 8:
+# the shapes kernels A, A', B, C and D run at on a rank of a tensor-parallel
+# mesh (parallel/tensor.py)
+TP_RANK_HEADS = [(f"TP{t} rank {32 // t}/{8 // t}", 32 // t, 8 // t) for t in (2, 4, 8)]
+
+
 def _prev(kernel: str, case: str) -> str:
     ms = PREV_MS.get((kernel, case))
     return "n/a" if ms is None else f"{ms:.4f}"
@@ -385,7 +406,9 @@ def check_kernel_a(timer: Timer, main_s: int) -> dict:
         ("LoRA B=2 S=2048", 2, 2048, 32, 8, 64, bf, True, None),  # l1's layer
         ("GRPO B=8 S=3072", 8, 3072, 32, 8, 64, bf, True, None),  # r1's update forward
         ("main", 1, main_s, 32, 8, 64, bf, True, None),
-    ]
+    ] + [  # a TP rank's heads at the SFT layer's shape (t1's, 4 x 2048)
+        (f"{label} B=4 S=2048", 4, 2048, hq, hkv, 64, bf, True, None)
+        for label, hq, hkv in TP_RANK_HEADS]
     worst, main = 0.0, None
     gen = torch.Generator(device="cuda").manual_seed(1)
     for (label, b, s, hq, hkv, d, dtype, causal, kv_len) in cases:
@@ -452,7 +475,8 @@ BWD_CASES = [  # (label, B, S, Hq, Hkv, D, dtype, kv_len, q_scale)
     ("LoRA B=2 S=2048", 2, 2048, 32, 8, 64, torch.bfloat16, None, 1.0),
     # r1's update layer is B=8 x 3072; the plain backward's fp32 scores hold it to 2
     ("GRPO B=2 S=3072", 2, 3072, 32, 8, 64, torch.bfloat16, None, 1.0),
-]
+] + [  # a TP rank's heads at the SFT layer's shape (t1's)
+    (label, 4, 2048, hq, hkv, 64, torch.bfloat16, None, 1.0) for label, hq, hkv in TP_RANK_HEADS]
 
 
 def bwd_inputs(gen, b, s, hq, hkv, d, dtype, q_scale):
@@ -509,7 +533,7 @@ def check_kernel_a_bwd(timer: Timer) -> dict:
         del o_lib
         bound, by = attention_bwd_bound_ms(b, s, hq, hkv, d, dtype, kv_len)
         prev = _prev("A'", label)
-        log(f"  {label:13s} B={b} S={s:5d} Hq={hq} Hkv={hkv} D={d:3d} {str(dtype):14s} "
+        log(f"  {label:13s} B={b} S={s:5d} Hq={hq:2d} Hkv={hkv} D={d:3d} {str(dtype):14s} "
             f"kv_len={kv_len or s} q*{q_scale:g} dq/dk/dv max_abs_err={errs[0]:.3e}/"
             f"{errs[1]:.3e}/{errs[2]:.3e} ({'/'.join(f'{r:.2f}' for r in ratios)}x GRAD_TOL)  "
             f"ms={ms:.4f} prev_ms={prev} plain_ms={plain_ms:.4f} "
@@ -597,22 +621,26 @@ def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
         "(plain); library = F.scaled_dot_product_attention with a length mask "
         "(bf16 cache only); prev = the CUDA-core kernel")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases = []  # (label, B, T, D, lengths, int8, NaN past the lengths)
+    cases = []  # (label, B, T, D, lengths, int8, NaN past the lengths, Hq, Hkv)
     for b in (1, 8):
         for t in (256, 2048):
             lens = [t] if b == 1 else [1, t, 7, t // 2, t - 1, 100, 33, t // 3]
             for quant in (False, True):
-                cases.append((f"B={b} T={t}", b, t, 64, lens, quant, False))
+                cases.append((f"B={b} T={t}", b, t, 64, lens, quant, False, 32, 8))
     ragged = [1, 2048, 7, 1024, 2047, 100, 33, 682]
     for d in (64, 128):  # 128: Llama-3.1-8B's head_dim
         for quant in (False, True):
-            cases.append((f"D={d} ragged", 8, 2048, d, ragged, quant, True))
+            cases.append((f"D={d} ragged", 8, 2048, d, ragged, quant, True, 32, 8))
     # the contiguous engine's shape (e3: 8 slots, max_len 2048, mid-decode)
-    cases.append(("e3", 8, 2048, 64, E3_LENS, False, False))
-    cases.append(("main", 1, main_t, 64, [main_len], False, False))  # the main path's shape
+    cases.append(("e3", 8, 2048, 64, E3_LENS, False, False, 32, 8))
+    cases.append(("main", 1, main_t, 64, [main_len], False, False, 32, 8))  # the main path's
+    for label, hq, hkv in TP_RANK_HEADS:  # a TP rank's heads at e3's shape, bf16 and int8
+        for quant in (False, True):
+            cases.append((f"{label} e3", 8, 2048, 64, E3_LENS, quant, False, hq, hkv))
     worst, main = 0.0, None
-    for (label, b, t, d, lens, quant, nan_tail) in cases:
-        q, kc, vc, lengths = _decode_inputs(gen, b, t, d, lens, quant, nan_tail)
+    for (label, b, t, d, lens, quant, nan_tail, hq, hkv) in cases:
+        q, kc, vc, lengths = _decode_inputs(gen, b, t, d, lens, quant, nan_tail, hq=hq,
+                                            hkv=hkv)
         out = flash_decode_attention(q, kc, vc, lengths)
         ref = attention.decode_attention(q, kc, vc, lengths)
         err, tol = check_close(out, ref, f"kernel B {label} quant={quant}")
@@ -629,8 +657,9 @@ def check_kernel_b(timer: Timer, main_t: int, main_len: int) -> dict:
         bound, by = decode_bound_ms(q, kc["q"] if quant else kc, lengths, quant)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
         prev = _prev("B", label) if not quant else "n/a"
-        log(f"  {label:14s} B={b} T={t:5d} D={d:3d} {'int8' if quant else 'bf16'} "
-            f"{'NaN-tail ' if nan_tail else ''}max_abs_err={err:.3e} "
+        log(f"  {label:14s} B={b} T={t:5d} Hq={hq:2d} Hkv={hkv} D={d:3d} "
+            f"{'int8' if quant else 'bf16'} {'NaN-tail ' if nan_tail else ''}"
+            f"max_abs_err={err:.3e} "
             f"({tol})  ms={ms:.4f} prev_ms={prev} plain_ms={plain_ms:.4f} "
             f"library_ms={lib} bound_ms={bound:.5f} ({by})")
         if label == "main":
@@ -680,7 +709,9 @@ def check_kernel_c(timer: Timer, main_t: int, main_len: int) -> dict:
         ("n_rep 8", 4, 512, 64, 8, 64, torch.bfloat16, [512, 0, 1, 200], True),
         ("T=200", 3, 200, 32, 8, 64, torch.bfloat16, [0, 1, 200], True),
         ("T=200 fp32 D=128 n_rep 8", 3, 200, 16, 2, 128, torch.float32, [200, 77, 0], True),
-    ]
+    ] + [  # a TP rank's heads at e3's shape
+        (f"{label} (e3)", 8, 2048, hq, hkv, 64, torch.bfloat16, E3_LENS, False)
+        for label, hq, hkv in TP_RANK_HEADS]
     worst, main = 0.0, None
     for (label, b, t, hq, hkv, d, dtype, lens, nan_tail) in cases:
         q = torch.randn(b, hq, d, generator=gen, device="cuda").to(dtype)
@@ -749,15 +780,15 @@ def paged_bound_ms(q, kq, table, lengths, quant: bool) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def _paged_inputs(gen, b, d, lens, quant, layers=1, bs=64, p=32, n=257, hq=32):
-    """q [b, hq, d] and K/V pools of ``layers`` layers [L, N, bs, 8, d] in
+def _paged_inputs(gen, b, d, lens, quant, layers=1, bs=64, p=32, n=257, hq=32, hkv=8):
+    """q [b, hq, d] and K/V pools of ``layers`` layers [L, N, bs, hkv, d] in
     bf16 (or int8 with scales), sequences' pages shuffled through the pool
     (block 0, the sink, owned by none), NaN in every row no sequence reads:
     the sink, unowned pages, and rows past each length."""
     from tts_max_tpu_torch.models.llama import _quantize_kv
 
     q = torch.randn(b, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
-    kv = [torch.randn(layers, n, bs, 8, d, generator=gen, device="cuda").to(torch.bfloat16)
+    kv = [torch.randn(layers, n, bs, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
           for _ in range(2)]
     perm = torch.randperm(n - 1, generator=torch.Generator().manual_seed(b * d))[:b * p] + 1
     table = perm.view(b, p).to(device="cuda", dtype=torch.int32)
@@ -794,20 +825,20 @@ def check_paged(timer: Timer) -> dict:
                "F": pa.paged_decode_attention}
     gen = torch.Generator(device="cuda").manual_seed(4)
     lens = PAGED_MAIN_LENS
-    cases = [  # (label, B, D, lengths, int8, Hq, bs)
-        ("main", 8, 64, lens, False, 32, 64), ("main int8", 8, 64, lens, True, 32, 64),
-        ("D=128", 8, 128, lens, False, 32, 64), ("D=128 int8", 8, 128, lens, True, 32, 64),
-        ("B=1", 1, 64, [1358], False, 32, 64),
-        ("n_rep 8 B=1 int8", 1, 64, [1358], True, 64, 64),
-        ("bs=16", 8, 64, lens, False, 32, 16), ("bs=48 int8", 8, 64, lens, True, 32, 48),
-    ]
+    cases = [  # (label, B, D, lengths, int8, Hq, bs, Hkv)
+        ("main", 8, 64, lens, False, 32, 64, 8), ("main int8", 8, 64, lens, True, 32, 64, 8),
+        ("D=128", 8, 128, lens, False, 32, 64, 8), ("D=128 int8", 8, 128, lens, True, 32, 64, 8),
+        ("B=1", 1, 64, [1358], False, 32, 64, 8),
+        ("n_rep 8 B=1 int8", 1, 64, [1358], True, 64, 64, 8),
+        ("bs=16", 8, 64, lens, False, 32, 16, 8), ("bs=48 int8", 8, 64, lens, True, 32, 48, 8),
+    ] + [(label, 8, 64, lens, False, hq, 64, hkv) for label, hq, hkv in TP_RANK_HEADS]
     worst = {k: 0.0 for k in entries}
     main = {}
-    for (label, b, d, lens, quant, hq, bs) in cases:
+    for (label, b, d, lens, quant, hq, bs, hkv) in cases:
         p = max(32, -(-max(PAGED_MAIN_LENS) // bs))  # the bs 64 table (32) and pool (257)
         n = max(257, b * p + 1)
         q, kp, vp, table, lengths = _paged_inputs(gen, b, d, lens, quant, layers=2, bs=bs,
-                                                  p=p, n=n, hq=hq)
+                                                  p=p, n=n, hq=hq, hkv=hkv)
         k0, v0 = _layer(kp, 1), _layer(vp, 1)
         ref = pa.paged_decode_attention_xla(q, k0, v0, table, lengths)
         plain_ms = timer.ms(lambda: pa.paged_decode_attention_xla(q, k0, v0, table, lengths),
@@ -815,8 +846,8 @@ def check_paged(timer: Timer) -> dict:
         lib_ms = None
         if not quant:
             idx = table.long()
-            kc = k0[idx].reshape(b, -1, 8, d).transpose(1, 2)
-            vc = v0[idx].reshape(b, -1, 8, d).transpose(1, 2)
+            kc = k0[idx].reshape(b, -1, hkv, d).transpose(1, 2)
+            vc = v0[idx].reshape(b, -1, hkv, d).transpose(1, 2)
             mask = (torch.arange(kc.shape[2], device="cuda")[None, :] < lengths[:, None])
             mask = mask[:, None, None, :]
             qs = q[:, :, None, :]
@@ -831,7 +862,7 @@ def check_paged(timer: Timer) -> dict:
             worst[name] = max(worst[name], err)
             ms = timer.ms(lambda: fn(q, k0, v0, table, lengths))
             lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
-            log(f"  {name} {label:16s} B={b} Hq={hq} D={d:3d} bs={bs} "
+            log(f"  {name} {label:16s} B={b} Hq={hq} Hkv={hkv} D={d:3d} bs={bs} "
                 f"{'int8' if quant else 'bf16'} max_abs_err={err:.3e} ({tol})  ms={ms:.4f} "
                 f"prev_ms={_prev(name, label)} plain_ms={plain_ms:.4f} library_ms={lib} "
                 f"bound_ms={bound:.5f} ({by})")
@@ -844,7 +875,7 @@ def check_paged(timer: Timer) -> dict:
             out = pa.paged_decode_attention_dense(q, kp, vp, table, lengths, layer=layer)
             err, tol = check_close(out, ref_l, f"paged D stacked layer={layer} {label}")
             worst["D"] = max(worst["D"], err)
-        log(f"  D stacked form (layer=0, 1 of [2, {n}, {bs}, 8, {d}]) {label}: "
+        log(f"  D stacked form (layer=0, 1 of [2, {n}, {bs}, {hkv}, {d}]) {label}: "
             "within tolerance")
     return {k: dict(max_abs_err=worst[k], **main[k]) for k in entries}
 
@@ -1424,8 +1455,9 @@ def run_training(counters, validation) -> dict:
     NCCL group of world size 1 (``nccl_world_of_one``): sft.json's
     ``strategy: fsdp`` then splits every rule-sharded leaf into one block,
     and the collectives each run makes must be what its steps, eval, saves
-    and validation imply. Returns the launch counts of both runs; the
-    output stays under ``TRAIN_DIR`` for c1."""
+    and validation imply. Returns the launch counts of both runs and the
+    first run's losses (t1's reference); the output stays under
+    ``TRAIN_DIR`` for c1."""
     import shutil
 
     from tts_max_tpu_torch.inference import quality
@@ -1538,6 +1570,135 @@ def run_training(counters, validation) -> dict:
         f"validation (save_steps 1, the 5 s prompt): {steps} tokens, "
         f"{_check_wav_file('q1', wav) / 16000:.2f} s of audio written finite; "
         f"launches {got2}; collectives {calls2}")
+    return {k: got[k] + got2[k] for k in got}, losses
+
+
+TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tp")
+TP_STEPS = 4
+# t1's losses against the fsdp run's (the same config, seed, data and
+# schedule up to step 3; a tp mesh of one rank multiplies the same blocks,
+# and its cross entropy reduces the same fp32 logits through max, sum and
+# log in place of logsumexp): steps 1-2 read the same params (the first
+# update runs at lr 0), step 3 those after one update at the peak lr, whose
+# bf16 weights may round one ulp apart where the fp32 grads differ in their
+# last bits
+TP_LOSS_RTOL = {1: 1e-5, 2: 1e-5, 3: 1e-3}
+
+
+def tp_sft_collectives(L: int, steps: int, chunks: int, eval_batches: int, saves: int,
+                       logs: int) -> tuple[dict, dict]:
+    """The collectives of one ``training.main`` run under ``tp`` (``counts()``
+    and ``counts_tp()``), by the step's structure, at one micro-step a step
+    with remat and the loss in ``chunks`` chunks a micro-batch. A step's
+    forward sums the embedding's lookup and each layer's two row-parallel
+    products (1 + 2 L row-parallel exits); remat's recompute sums each
+    layer's attention product again (the recompute stops at the layer's
+    last saved tensor, before the MLP's sum): L more. Its backward sums the
+    grad of each column-parallel entry, two a layer and the head's one a
+    chunk. The vocab-parallel cross entropy reduces each chunk's max, sum
+    of exponentials and target logit (one max and two sums), in the
+    forward and again in the chunk's recompute; the step's own all-reduces
+    are four (valid tokens, loss terms, the grads, the norm of the
+    tensor-split leaves). An eval batch runs one forward and reduces its
+    sums once. A checkpoint gathers every tensor-split leaf of the params,
+    mu and nu, the final model those of the params (8: the 7 stacked
+    leaves and the embedding); each save and the final model end at a
+    barrier."""
+    split = 8
+    dp = dict(all_reduce_sum=steps * (4 + 4 * chunks) + eval_batches * (1 + 2 * chunks)
+              + (1 if eval_batches else 0) + logs,
+              all_gather=saves * 3 * split + split, reduce_scatter_sum=0, barrier=saves + 1)
+    tp = dict(tensor_enter=steps * (2 * L + chunks),
+              tensor_exit=steps * (1 + 3 * L) + eval_batches * (1 + 2 * L),
+              all_reduce_max=steps * 2 * chunks + eval_batches * chunks, broadcast=0)
+    return dp, tp
+
+
+def run_tp_training(counters, fsdp_losses) -> dict:
+    """t1: the SFT run's config with ``strategy: tp``, through the entry
+    point in an NCCL group of world size 1 (a ``(1, 1, 1)`` mesh whose
+    tensor axis splits into one block: every row-parallel sum, entry grad
+    and vocab-parallel reduction made), ``TP_STEPS`` steps and one
+    checkpoint; its losses against the fsdp SFT run's (``TP_LOSS_RTOL``),
+    its kernel launches and collectives against their formulas; then one
+    step resumed from its checkpoint under ``fsdp`` (the whole leaves
+    re-split over the other axis). Returns the launch counts."""
+    import shutil
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.parallel import collectives
+    from tts_max_tpu_torch.training import main as train_main
+
+    path, cfg, changes, data = write_sft_config(TP_DIR)
+    cfg["training"]["strategy"] = "tp"
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    L = llama.config_for_architecture(cfg["modeling"]["parameters"]["architecture"]).n_layers
+    seq = cfg["modeling"]["parameters"]["max_seq_len"]
+    chunks = -(-(seq - 1) // cfg["training"].get("loss_chunk_size", 256))
+    log(f"t1: the SFT run's config with strategy fsdp -> tp, --total_steps {TP_STEPS}, "
+        f"the checkpoint at the end; {chunks} loss chunks a micro-batch")
+    _zero(counters)
+    collectives.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with nccl_world_of_one():
+        res = train_main.main(["--config_path", path, "--total_steps", str(TP_STEPS)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _counts(counters)
+    losses = [m.loss for _, m, _, _ in res.steps]
+    if not (len(losses) == TP_STEPS and np.isfinite(losses).all()):
+        raise AssertionError(f"t1 losses {losses}")
+    for step, rtol in TP_LOSS_RTOL.items():
+        a, b = losses[step - 1], fsdp_losses[step - 1]
+        if not abs(a - b) <= rtol * abs(b):
+            raise AssertionError(f"t1 step {step}: loss {a} vs the fsdp run's {b} "
+                                 f"(rtol {rtol})")
+    eval_batches = 4 // cfg["training"]["batch_size"]
+    _check_counts("t1", got, _want(counters,
+                                   flash_attention=L * (2 * TP_STEPS + eval_batches),
+                                   flash_attention_bwd=L * TP_STEPS))
+    want_dp, want_tp = tp_sft_collectives(L, TP_STEPS, chunks, eval_batches, saves=1, logs=1)
+    _check_collectives("t1", collectives.counts(), want_dp)
+    _check_collectives("t1 tensor-parallel", collectives.counts_tp(), want_tp)
+    secs = [s for _, _, s, _ in res.steps]
+    toks = [n for _, _, _, n in res.steps]
+    ms_step = 1e3 * float(np.median(secs[2:]))
+    tok_s = float(np.median([n / s for n, s in zip(toks[2:], secs[2:])]))
+    log(f"  t1 {TP_STEPS} steps in {wall:.1f} s: losses "
+        + " ".join(f"{x:.6f}" for x in losses) + " (the fsdp run's "
+        + " ".join(f"{x:.6f}" for x in fsdp_losses[:TP_STEPS]) + ")")
+    log(f"  t1 tensor-parallel SFT at world size 1: ms/step {ms_step:.1f}, train tokens/s "
+        f"{tok_s:.0f} (median of steps 3-{TP_STEPS}; the fsdp SFT at world size 1: "
+        f"376.7-404.2 ms/step in PERF.md, H100 80GB HBM3 at 700 W) (step seconds "
+        f"{' '.join(f'{x:.3f}' for x in secs)}); peak torch.cuda.max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; launches {got}; collectives {collectives.counts()} "
+        f"{collectives.counts_tp()}; {gpu_line()}")
+    del res
+
+    cfg["training"]["strategy"] = "fsdp"
+    cfg["checkpointing"]["only_load_model_weights"] = False
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    _zero(counters)
+    collectives.reset_counts()
+    with nccl_world_of_one():
+        res = train_main.main(["--config_path", path, "--total_steps", str(TP_STEPS + 1)])
+    got2 = _counts(counters)
+    if not ([s for s, _, _, _ in res.steps] == [TP_STEPS + 1]
+            and res.statistics.step == TP_STEPS + 1 and np.isfinite(res.steps[0][1].loss)):
+        raise AssertionError(f"t1 resume under fsdp: steps {[s for s, _, _, _ in res.steps]}")
+    _check_counts("t1 resume under fsdp", got2,
+                  _want(counters, flash_attention=2 * L, flash_attention_bwd=L))
+    _check_collectives("t1 resume under fsdp", collectives.counts(),
+                       sft_collectives(L, 1, 0, saves=1, validations=0, logs=1))
+    _check_collectives("t1 resume under fsdp", collectives.counts_tp(),
+                       dict(tensor_enter=0, tensor_exit=0, all_reduce_max=0, broadcast=0))
+    log(f"  t1 resumed under fsdp from the tp run's step-{TP_STEPS} checkpoint: step "
+        f"{TP_STEPS + 1} loss {res.steps[0][1].loss:.6f}; collectives {collectives.counts()}")
+    del res
+    shutil.rmtree(TP_DIR)
     return {k: got[k] + got2[k] for k in got}
 
 
@@ -2097,12 +2258,15 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
     run kernel A), that the run made no host sync besides each dispatch's
     blob wait and each park read (which the debug mode does not flag), and
     every completion, and vocode each. Returns the launch counts; fills
-    ``report`` with each request's tokens, TTFTs, tokens/s and ms per
-    lockstep step."""
+    ``report`` with each request's tokens, TTFTs, tokens/s, ms per lockstep
+    step, the lockstep steps and the collectives of the run."""
+    from tts_max_tpu_torch.parallel import collectives
+
     lo, size = sv.generation_window()
     buckets = tuple(sorted({-(-len(r["ids"]) // 64) * 64 for r in reqs}))
     eng.warmup(prompt_buckets=buckets)
     _zero(counters)
+    collectives.reset_counts()
     t0 = time.perf_counter()
     rids = [eng.submit(r["ids"], r["budget"], sv.speech_end_id, sampling_seed=r["seed"],
                        sampling=r.get("sampling"), min_tokens=r.get("min_tokens", 0))
@@ -2182,7 +2346,8 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
         f"{len(ttft)} wavs in {voc_s:.2f} s")
     if report is not None:
         report.update(tokens=tokens, ttft=ttft, tok_s=gen_tokens / wall,
-                      ms_step=1e3 * wall / steps)
+                      ms_step=1e3 * wall / steps, steps=steps,
+                      collectives={**collectives.counts(), **collectives.counts_tp()})
     return got
 
 
@@ -2305,6 +2470,119 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
         raise AssertionError(f"e6: {free} free + evictable blocks of {eng.num_blocks - 1}")
     log(f"  e6: {eng._suffix_admissions} suffix admissions, blocks balanced ({free} free + "
         f"evictable of {eng.num_blocks - 1})")
+    return totals
+
+
+def run_tp_serving(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
+    """e-tp and TP generate: the serving engines and ``generate`` with
+    ``mesh=`` a ``(1, 1, 1)`` tensor-parallel mesh in an NCCL group of world
+    size 1, on the rank's blocks of the main path's weights (one block a
+    leaf), each beside the same engine or generate without a mesh in this
+    process: greedy ids identical, kernel launches and collectives at their
+    formulas (each forward sums the embedding and each layer's two
+    row-parallel products, 1 + 2 L, over a group of one; the vocab window's
+    head is built whole once, at construction, so no step gathers logits).
+    e-tp1 contiguous bf16 (kernel C), e-tp2 contiguous int8 KV (kernel B),
+    e-tp3 paged (kernel D); 8 requests, 64 new tokens, K = 16. Returns the
+    launch counts."""
+    from tts_max_tpu_torch.data import normalization
+    from tts_max_tpu_torch.inference.engine import InferenceEngine, PagedInferenceEngine
+    from tts_max_tpu_torch.inference.generate import generate
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+    from tts_max_tpu_torch.parallel import collectives, mesh as pmesh
+    from tts_max_tpu_torch.parallel.sharding import ShardLayout
+
+    L = cfg.n_layers
+    greedy = SamplingParams(temperature=0.0)
+    normalizer = normalization.create()
+    order = [("desc", 0), ("desc", 1), ("desc", 2), ("desc", 3), ("p5s", 0), ("p5s", 1),
+             ("p22s", 0), ("p22s", 1)]
+    prompts = [engine_prompt(tok, normalizer, encoder, kind, i) for kind, i in order]
+    reqs = [dict(ids=ids, codes=codes, budget=64, seed=300 + j, sampling=greedy)
+            for j, (ids, codes) in enumerate(prompts)]
+    window = sv.generation_window()
+    common = dict(max_batch=8, max_len=2048, vocab_window=window, steps_per_dispatch=16,
+                  device="cuda")
+    variants = [("e-tp1 contiguous bf16", InferenceEngine, {}, "ragged_decode_attention"),
+                ("e-tp2 contiguous int8 KV", InferenceEngine, {"quantized_kv": True},
+                 "flash_decode_attention"),
+                ("e-tp3 paged bf16", PagedInferenceEngine, {"block_size": 64},
+                 "paged_decode_attention_dense")]
+    totals: dict = {}
+
+    def add(got):
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    log("e-tp: the engines with mesh= a (1, 1, 1) tensor-parallel mesh (NCCL, world size "
+        "1) beside the same engines without one; Llama-3.2-1B, greedy, 8 requests x 64 "
+        f"tokens, max_batch 8, K=16, window {window}")
+    with nccl_world_of_one():
+        env = pmesh.initialize_distributed("cuda")
+        try:
+            mesh = pmesh.build_mesh((1, 1, 1), "tp")
+            local = ShardLayout(params, mesh).shard(params)
+            for label, cls, kw, kernel in variants:
+                runs = {}
+                for m, p in ((None, params), (mesh, local)):
+                    eng = cls(p, cfg, mesh=m, **kw, **common)
+                    runs[m is not None] = report = {}
+                    name = label + (" with mesh" if m is not None else " without a mesh")
+                    add(drive_engine(name, eng, reqs, decoder, sv, counters, kernel,
+                                     report=report))
+                    calls = report["collectives"]
+                    units = (eng._prefill_groups + eng._park_groups + eng._suffix_admissions
+                             + report["steps"])
+                    want = dict.fromkeys(calls, 0)
+                    if m is not None:
+                        want["tensor_exit"] = (1 + 2 * L) * units
+                    _check_collectives(name, calls, want)
+                    del eng
+                same = [np.array_equal(a, b) for a, b in zip(runs[True]["tokens"],
+                                                             runs[False]["tokens"])]
+                if not all(same):
+                    raise AssertionError(f"{label}: ids with the mesh differ from the ids "
+                                         f"without it in requests "
+                                         f"{[i for i, x in enumerate(same) if not x]}")
+                log(f"  {label}: ids identical with and without the mesh ({len(same)} "
+                    f"requests); tok/s {runs[True]['tok_s']:.1f} with the mesh, "
+                    f"{runs[False]['tok_s']:.1f} without; ms per lockstep step "
+                    f"{runs[True]['ms_step']:.2f} / {runs[False]['ms_step']:.2f}; "
+                    f"{gpu_line()}")
+
+            # TP generate: the first four prompts, right-padded, 64 tokens
+            ids = [p for p, _ in prompts[:4]]
+            s = max(len(x) for x in ids)
+            tokens = np.zeros((4, s), np.int32)
+            for i, x in enumerate(ids):
+                tokens[i, :len(x)] = x
+            lengths = np.asarray([len(x) for x in ids], np.int32)
+            out = {}
+            for m, p in ((None, params), (mesh, local)):
+                _zero(counters)
+                collectives.reset_counts()
+                res = generate(p, cfg, tokens, lengths, None, sp=greedy, max_new_tokens=64,
+                               eos_id=sv.speech_end_id, vocab_window=window, device="cuda",
+                               mesh=m)
+                got = _counts(counters)
+                add(got)
+                _check_counts(f"TP generate {'with' if m else 'without'} a mesh", got,
+                              _want(counters, flash_attention=L,
+                                    flash_decode_attention=L * res.steps))
+                calls = {**collectives.counts(), **collectives.counts_tp()}
+                want = dict.fromkeys(calls, 0)
+                if m is not None:
+                    # the window head's sum, then each forward's
+                    want["tensor_exit"] = 1 + (1 + 2 * L) * (1 + res.steps)
+                _check_collectives("TP generate", calls, want)
+                out[m is not None] = res
+            if not torch.equal(out[True].tokens, out[False].tokens):
+                raise AssertionError("TP generate: ids with the mesh differ from generate's")
+            log(f"  TP generate: 4 prompts x 64 tokens, ids identical with and without the "
+                f"mesh ({out[True].steps} steps); decode {out[True].decode_time:.3f} s with "
+                f"the mesh, {out[False].decode_time:.3f} s without")
+        finally:
+            pmesh.destroy_distributed(env)
     return totals
 
 
@@ -4066,8 +4344,13 @@ def main() -> int:
     q1 = write_seeded_codec_checkpoints()
     phase("SFT path")
     t_tr = time.perf_counter()
-    trained = run_training(counters, validation=q1)
+    trained, sft_losses = run_training(counters, validation=q1)
     log(f"  SFT path wall {time.perf_counter() - t_tr:.1f} s")
+    phase("t1 tensor-parallel SFT")
+    t_tp = time.perf_counter()
+    for name, n in run_tp_training(counters, sft_losses).items():
+        trained[name] += n
+    log(f"  t1 wall {time.perf_counter() - t_tp:.1f} s")
     phase("g1 codec GAN")
     add_chain(run_gan(ds, q1[0], counters))
     phase("c1 convert and serve")
@@ -4101,6 +4384,10 @@ def main() -> int:
     phase("engines")
     for name, n in run_engines(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
                                counters).items():
+        launches[name] += n
+    phase("e-tp engines and generate with a tensor-parallel mesh")
+    for name, n in run_tp_serving(tok, sv, params, cfg, codec.encoder, model._audio_decoder,
+                                  counters).items():
         launches[name] += n
     phase("speculative decoding")
     log("speculative decoding: Llama-3.2-1B target, window (262, 65542)")

@@ -296,9 +296,12 @@ def test_gan_eval_step_matches_jax(setup):
                            mpd_cfg=s["mpd_cfg"], msd_cfg=s["msd_cfg"], cfg=CodecTrainingConfig())
     for name in pm._fields:
         _close(float(getattr(pm, name)), float(getattr(jm, name)), what=name)
-    with pytest.raises(NotImplementedError, match="item 4b"):  # a tensor axis
-        gan.make_gan_step(s["vcfg"], s["mpd_cfg"], s["msd_cfg"], CodecTrainingConfig(), pf,
-                          None, None, mesh=Mesh((1, 1, 2)))
+    # a tensor axis: the step of the batch group (which excludes the tensor
+    # peers, so they run the same step on the same rows, as in JAX)
+    batch_group = object()
+    step = gan.make_gan_step(s["vcfg"], s["mpd_cfg"], s["msd_cfg"], CodecTrainingConfig(), pf,
+                             None, None, mesh=Mesh((1, 1, 2), groups={"batch": batch_group}))
+    assert step.keywords["group"] is batch_group
 
 
 def _codec_dataset(path, n=6):

@@ -863,3 +863,117 @@ def test_world_size_one_nccl_step_matches_the_one_device_step(strategy, monkeypa
     assert calls["all_gather"] == (1 + A * 2 * 7 * L if split else 0)
     assert calls["reduce_scatter_sum"] == (A * 7 * L + 1 if split else 0)
     assert calls["all_reduce_sum"] == (4 if split else 3)
+
+
+def _nccl_world_of_one(monkeypatch):
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_world_size_one_nccl_tp_engine_matches_the_engine_without_a_mesh(paged, monkeypatch):
+    """The engine with ``mesh=`` a ``(1, 1, 1)`` tensor-parallel mesh in an
+    NCCL group of world size 1 (the rank's one block a leaf; every
+    row-parallel sum made over a group of one, which copies) gives the
+    greedy ids of the same engine without a mesh, bf16, through kernels C
+    (contiguous) and D (paged), with one row-parallel sum per embedding
+    and per layer product of each forward."""
+    import numpy as np
+
+    from tts_max_tpu_torch.inference.engine import InferenceEngine, PagedInferenceEngine
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.ops.sampling import SamplingParams
+    from tts_max_tpu_torch.parallel import collectives, mesh as pmesh
+    from tts_max_tpu_torch.parallel.sharding import ShardLayout
+
+    _cuda()
+    _nccl_world_of_one(monkeypatch)
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, rope_theta=10000.0,
+                            use_llama3_rope_scaling=False, max_seq_len=256)
+    params = llama.init_params(cfg, seed=4, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(3, 512, n).astype(np.int32) for n in (5, 70, 9, 33)]
+    cls, kw = (PagedInferenceEngine, {"block_size": 64}) if paged else (InferenceEngine, {})
+    common = dict(max_batch=4, max_len=256, sp=SamplingParams(temperature=0.0),
+                  steps_per_dispatch=4, vocab_window=(100, 300), device="cuda", **kw)
+    ref = cls(params, cfg, **common).generate_all(prompts, 24, eos_id=-1)
+    env = pmesh.initialize_distributed("cuda")
+    try:
+        mesh = pmesh.build_mesh((1, 1, 1), "tp")
+        eng = cls(ShardLayout(params, mesh).shard(params), cfg, mesh=mesh, **common)
+        collectives.reset_counts()
+        got = eng.generate_all(prompts, 24, eos_id=-1)
+        exits = collectives.counts_tp()["tensor_exit"]
+    finally:
+        pmesh.destroy_distributed(env)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    steps = sum(eng.stats()["dispatches_per_stage"].values()) * eng.steps_per_dispatch
+    assert exits == (1 + 2 * cfg.n_layers) * (eng._prefill_groups + steps)
+
+
+@pytest.mark.gpu
+def test_world_size_one_nccl_tp_step_matches_the_one_device_step(monkeypatch):
+    """One ``tp`` train step through an NCCL group of world size 1 (every
+    leaf its one tensor block; the row-parallel sums, the entries' grad
+    sums and the vocab-parallel cross entropy made over a group of one)
+    against the one-device step on the card, fp32, from the same weights and
+    batch (two micro-steps, remat, the chunked loss). The cross entropy
+    reduces the same fp32 logits through max, sum and log in place of
+    logsumexp: the loss within rtol 1e-6, the grad norm within 1e-5. The
+    grads then differ in their last bits, and Adam's first update moves a
+    near-zero grad's weight by lr times its sign: the params are held to
+    ``test_torch_distributed``'s Adam allowance (every element within 2 lr
+    + 2e-6, under 1% of them beyond 2e-6)."""
+    import numpy as np
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.parallel import collectives, mesh as pmesh
+    from tts_max_tpu_torch.training import optim, train_step as ts
+
+    _cuda()
+    _nccl_world_of_one(monkeypatch)
+    cfg = llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            head_dim=64, ffn_dim=512, rope_theta=10000.0,
+                            use_llama3_rope_scaling=False, max_seq_len=128,
+                            dtype=torch.float32, remat=True)
+    params = llama.init_params(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 256, (2, 2, 128)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :, :7] = -100
+    batch = {"input_ids": ids, "labels": labels}
+    tx = optim.create_optimizer(1e-3)
+    p1, o1, m1 = ts.train_step(params, tx.init(params), batch, cfg=cfg, tx=tx,
+                               loss_chunk_size=64)
+    env = pmesh.initialize_distributed("cuda")
+    try:
+        mesh = pmesh.build_mesh((1, 1, 1), "tp")
+        step = ts.make_train_step(mesh, cfg, tx, params, 1.0, 64)
+        p, o = step.shard(params, tx.init(params))
+        collectives.reset_counts()
+        p2, o2, m2 = step(p, o, batch)
+        calls = collectives.counts_tp()
+        p2 = step.layout.gather(p2)
+    finally:
+        pmesh.destroy_distributed(env)
+    assert m2.tokens == m1.tokens
+    assert m2.loss == pytest.approx(m1.loss, rel=1e-6)
+    assert m2.grad_norm == pytest.approx(m1.grad_norm, rel=1e-5)
+    noisy = total = 0
+    for (path, a), (_, b) in zip(optim.tree_items(p2), optim.tree_items(p1)):
+        err = (a - b).abs()
+        assert float(err.max()) <= 2 * 1e-3 + 2e-6, (path, float(err.max()))
+        noisy, total = noisy + int((err > 2e-6).sum()), total + err.numel()
+    assert noisy < 0.01 * total, (noisy, total)
+    L, A, C = cfg.n_layers, 2, 2  # 127 shifted tokens in chunks of 64
+    assert calls == dict(tensor_enter=A * (2 * L + C), tensor_exit=A * (1 + 3 * L),
+                         all_reduce_max=A * 2 * C, broadcast=0)

@@ -4,8 +4,8 @@ nothing of ``tts_max_tpu``, no ``transformers``, ``tokenizers``, ``regex``,
 of them), and nothing of the repository's ``tools`` package (its CLIs are
 JAX's; the port has its own in ``tts_max_tpu_torch/tools``); nor do the
 scripts that drive it on the card (``chip_smoke.py``,
-``bench_sft_ranks.py``, ``tools/profile_torch_synthesis.py``), nor the rank
-of its gloo tests (``tests/_torch_dist_worker.py``)."""
+``bench_sft_ranks.py``, ``tools/profile_torch_synthesis.py``), nor the ranks
+of its gloo tests (``tests/_torch_dist_worker.py``, ``tests/_torch_tp_worker.py``)."""
 
 import pathlib
 import re
@@ -15,7 +15,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "tts_max_tpu_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "bench_sft_ranks.py",
-           ROOT / "tools" / "profile_torch_synthesis.py", ROOT / "tests" / "_torch_dist_worker.py"]
+           ROOT / "tools" / "profile_torch_synthesis.py", ROOT / "tests" / "_torch_dist_worker.py",
+           ROOT / "tests" / "_torch_tp_worker.py"]
 # `tts_max_tpu` as a whole module name: `tts_max_tpu_torch` must not match
 _JAX_PKG = r"tts_max_tpu(?![\w])"
 _BLOCKED = (rf"(?:jax\b|optax\b|orbax\b|transformers\b|tokenizers\b|regex\b|safetensors\b"
@@ -70,12 +71,12 @@ def test_no_jax_or_reference_package_imports_in_sources():
             PKG / "training" / "codec" / "gan_loop.py",
             PKG / "training" / "codec" / "codec_data.py", PKG / "models" / "whisper.py",
             PKG / "models" / "wavlm.py", PKG / "utils" / "onnx_lite.py",
-            ROOT / "tests" / "_torch_dist_worker.py"} | {
+            ROOT / "tests" / "_torch_dist_worker.py", ROOT / "tests" / "_torch_tp_worker.py"} | {
             PKG / "parallel" / f"{m}.py" for m in (
-                "__init__", "collectives", "mesh", "multihost", "sharding")} | {
+                "__init__", "collectives", "mesh", "multihost", "sharding", "tensor")} | {
             PKG / "training" / "rlhf" / f"{m}.py" for m in (
                 "asr", "dataset", "dnsmos", "ecapa", "grpo", "main", "reward_utils",
-                "rewards")} <= set(scanned)
+                "rewards", "topology")} <= set(scanned)
     offenders = [
         f"{path.relative_to(ROOT)}: {m.group(0).strip()}"
         for path in scanned
@@ -106,6 +107,7 @@ def test_every_module_imports_without_jax():
         "sys.modules['onnx'] = None\n"
         "sys.modules['onnxruntime'] = None\n"
         "sys.modules['tools'] = None\n"
+        "sys.path.insert(0, 'tests')  # the tp worker imports the dist worker\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         f"for path in {scripts!r}:\n"

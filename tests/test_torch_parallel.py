@@ -4,8 +4,11 @@ against the JAX package's (``tts_max_tpu/parallel``), in this process.
 Mesh shapes: every ``Strategy`` over 1, 2, 4 and 8 ranks, JAX's evaluated
 on that many of this process's virtual CPU devices, ValueErrors included.
 Partition specs: leaf by leaf against ``params_shardings`` for the tiny
-Llama on ``(1, 2, 1)`` and ``mesh8``, and for Llama-3.2-1B's shapes through
-``jax.eval_shape`` (nothing allocated). The launcher variables of torchrun,
+Llama on ``(1, 2, 1)``, ``mesh8``, ``(1, 1, 2)``, ``(1, 2, 2)`` and
+``(1, 4, 2)``, and for Llama-3.2-1B's and Llama-3.1-8B's shapes through
+``jax.eval_shape`` (nothing allocated); the shards of both axes put together
+again; RLHF's trainer/sampler shapes and errors against JAX's for worlds
+2-8; which Llama blocks run tensor-parallel. The launcher variables of torchrun,
 of SLURM and of neither. Shards of a leaf put together again, an
 indivisible dim kept whole. And ``training.main`` under torchrun's
 variables at world size 1 on gloo, in this process: the same losses as
@@ -145,6 +148,137 @@ def test_shards_put_together_again():
         DataLoader(list(range(16)), 6, list, process_count=4)
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 2), (1, 4, 2)])
+def test_tensor_partition_specs_match_jax(shape):
+    """Leaf by leaf, JAX's ``params_shardings`` under a tensor axis, for the
+    tiny Llama (vocab 128 and an odd 129, whose vocab stays whole) and
+    Llama-3.2-1B's shapes; ``ShardLayout`` splits the same dims over each
+    axis."""
+    n = shape[0] * shape[1] * shape[2]
+    mesh = jmesh.build_mesh(JMeshConfig(*shape), devices=jax.devices()[:n])
+    for cfg in (jllama.tiny_config(vocab_size=128, max_seq_len=64),
+                jllama.tiny_config(vocab_size=129, max_seq_len=64),
+                jllama.config_for_architecture("llama-1b")):
+        params = jax.eval_shape(lambda: jllama.init_params(jax.random.PRNGKey(0), cfg))
+        want = _jax_specs(params, mesh)
+        assert params_specs(params, _sizes(mesh)) == want
+        lay = ShardLayout(params, pmesh.Mesh(shape, shards_params=shape[1] > 1,
+                                             splits_tensor=True))
+        for path, spec in want.items():
+            assert lay.dims[path] == (spec.index("fsdp") if "fsdp" in spec else None), path
+            assert lay.tdims[path] == (spec.index("tensor") if "tensor" in spec else None)
+
+
+def test_llama8b_plan_on_fsdp_tp():
+    """Llama-3.1-8B's plan on (1, 4, 2) through ``jax.eval_shape``, as
+    ``test_llama8b_sharding_plan_abstract``: every spec JAX's, the embedding
+    and head split over both axes, every kernel over both."""
+    mesh = jmesh.build_mesh(JMeshConfig(1, 4, 2), devices=jax.devices()[:8])
+    params = jax.eval_shape(lambda: jllama.init_params(
+        jax.random.PRNGKey(0), jllama.llama31_8b_config()))
+    got = params_specs(params, _sizes(mesh))
+    assert got == _jax_specs(params, mesh)
+    assert got["embed/embedding"] == ("tensor", "fsdp")
+    assert got["lm_head/kernel"] == ("fsdp", "tensor")
+    assert got["layers/attn/wq/kernel"] == (None, "fsdp", "tensor")
+    assert got["layers/mlp/w_down/kernel"] == (None, "tensor", "fsdp")
+    assert sum(1 for s in got.values() if any(s)) == 9
+
+
+def test_two_axis_shards_put_together_again():
+    """On (1, 2, 2) the rank at (f, t) keeps block f of the fsdp dim and
+    block t of the tensor dim of each leaf (``wq`` [L, D, q]: dims 1 and 2),
+    and the four blocks joined are the leaf; a tp mesh of one rank splits
+    into one block (every rule-split leaf), a dp mesh nothing."""
+    g = torch.Generator().manual_seed(0)
+    params = {"embed": {"embedding": torch.randn(8, 6, generator=g)},
+              "layers": {"attn": {"wq": {"kernel": torch.randn(2, 6, 4, generator=g)},
+                                  "wo": {"kernel": torch.randn(2, 4, 6, generator=g)}},
+                         "attn_norm": {"scale": torch.randn(2, 6, generator=g)}},
+              "norm": {"scale": torch.randn(6, generator=g)}}
+    shape = (1, 2, 2)
+    lays = {(f, t): ShardLayout(params, pmesh.Mesh(shape, (0, f, t), shards_params=True,
+                                                   splits_tensor=True))
+            for f in range(2) for t in range(2)}
+    lay = lays[0, 0]
+    assert (lay.dims["layers/attn/wq/kernel"], lay.tdims["layers/attn/wq/kernel"]) == (1, 2)
+    assert (lay.dims["layers/attn/wo/kernel"], lay.tdims["layers/attn/wo/kernel"]) == (2, 1)
+    assert (lay.dims["embed/embedding"], lay.tdims["embed/embedding"]) == (1, 0)
+    assert lay.sharded == lay.tensor_sharded == {
+        "embed/embedding", "layers/attn/wq/kernel", "layers/attn/wo/kernel"}
+    shards = {c: dict(tree_items(lay.shard(params))) for c, lay in lays.items()}
+    for path, full in tree_items(params):
+        d, t = lay.dims[path], lay.tdims[path]
+        if d is None:
+            assert all(shards[c][path] is full for c in lays)
+            continue
+        rows = [torch.cat([shards[f, tt][path] for tt in range(2)], t) for f in range(2)]
+        assert torch.equal(torch.cat(rows, d), full), path
+        assert shards[1, 0][path].shape[t] == full.shape[t] // 2
+    one = ShardLayout(params, pmesh.Mesh((1, 1, 1), splits_tensor=True))
+    assert one.tensor_sharded == lay.tensor_sharded and one.sharded == frozenset()
+    assert ShardLayout(params, pmesh.Mesh((1, 1, 1))).tensor_sharded == frozenset()
+
+
+@pytest.mark.parametrize("world", range(2, 9))
+def test_topology_shapes_match_jax(world):
+    """The trainer's and the sampler's shapes, or JAX's ValueError, for
+    every n_sampler of 0 to the world."""
+    from tts_max_tpu.training.rlhf.topology import TrainerSamplerTopology as JTopology
+    from tts_max_tpu_torch.training.rlhf.topology import topology_shapes
+
+    for n_sampler in range(world + 1):
+        try:
+            t = JTopology.create(n_sampler, devices=jax.devices()[:world])
+            want = tuple(tuple(m.shape[a] for a in jmesh.AXIS_NAMES)
+                         for m in (t.trainer_mesh, t.sampler_mesh))
+        except ValueError as e:
+            want = ("ValueError", str(e))
+        try:
+            got = topology_shapes(world, n_sampler)
+        except ValueError as e:
+            got = ("ValueError", str(e))
+        assert got == want, (world, n_sampler)
+
+
+def test_topology_needs_two_ranks():
+    """One process (no group) has no rank to spare for a sampler: JAX's
+    ValueError."""
+    from tts_max_tpu_torch.training.rlhf.topology import TrainerSamplerTopology
+
+    with pytest.raises(ValueError, match="n_sampler=1 must leave >=1 trainer device of 1"):
+        TrainerSamplerTopology.create(1)
+
+
+def test_tensor_parallel_plan():
+    """Which blocks run split: all of the tiny Llama's on two ranks; with
+    ``n_kv_heads`` 1 the attention runs whole (its split leaves gathered)
+    and the MLP split; an odd vocab leaves the embedding whole; quantized
+    leaves, which no rule splits, run whole; a mesh that does not split
+    ``tensor`` has no plan."""
+    import dataclasses
+
+    from tts_max_tpu_torch.models import llama
+    from tts_max_tpu_torch.models.quantization import quantize_llama_params
+    from tts_max_tpu_torch.parallel.tensor import TensorParallel
+
+    mesh = pmesh.Mesh((1, 1, 2), groups={"tensor": None}, splits_tensor=True)
+    cfg = llama.tiny_config(vocab_size=128)
+    tp = TensorParallel.create(cfg, mesh)
+    assert (tp.embed, tp.head, tp.attn, tp.mlp, dict(tp.whole)) == (True, True, True, True, {})
+    assert tp.kv_heads(cfg) == 1
+    kv1 = dataclasses.replace(cfg, n_kv_heads=1)
+    tp = TensorParallel.create(kv1, mesh)
+    assert (tp.attn, tp.mlp, tp.kv_heads(kv1)) == (False, True, 1)
+    assert dict(tp.whole) == {"attn/wq": 1, "attn/wk": 1, "attn/wv": 1, "attn/wo": 0}
+    assert not TensorParallel.create(dataclasses.replace(cfg, vocab_size=129), mesh).embed
+    q = quantize_llama_params(llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                                                device="cpu"), bits=8)
+    tp = TensorParallel.create(cfg, mesh, q)
+    assert (tp.embed, tp.attn, tp.mlp, dict(tp.whole)) == (False, False, False, {})
+    assert TensorParallel.create(cfg, pmesh.Mesh((1, 1, 1))) is None
+
+
 def test_launcher_env():
     torchrun = {"RANK": "3", "WORLD_SIZE": "8", "LOCAL_RANK": "1", "LOCAL_WORLD_SIZE": "4",
                 "MASTER_ADDR": "10.0.0.1", "MASTER_PORT": "29500"}
@@ -171,15 +305,17 @@ def test_launcher_env():
 def test_tensor_axis_and_batch_checks(tmp_path):
     from tts_max_tpu_torch.training import main as train_main
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
-        pmesh.check_no_tensor_axis(pmesh.mesh_for_strategy(Strategy.TP, 2))
+    cfg = from_dict(ExperimentConfig, {"training": {"batch_size": 2, "strategy": "tp"}})
+    assert train_main.check_mesh(cfg, 2) == (1, 1, 2)  # tensor peers share the batch
     cfg = from_dict(ExperimentConfig, {"training": {"batch_size": 3, "strategy": "fsdp"}})
     with pytest.raises(ValueError, match="data\\*fsdp = 2"):
         train_main.check_mesh(cfg, 2)
     assert train_main.check_mesh(cfg, 1) == (1, 1, 1)
     cfg.training.strategy = Strategy.FSDP_TP
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+    with pytest.raises(ValueError, match="data\\*fsdp = 2"):
         train_main.check_mesh(cfg, 4)
+    cfg.training.batch_size = 4
+    assert train_main.check_mesh(cfg, 4) == (1, 2, 2)
     with pytest.raises(ValueError, match="does not divide"):
         train_main.check_mesh(cfg, 1)  # as JAX's fsdp_tp on one device
     assert pmesh.initialize_distributed("cpu") == pmesh.EnvironmentContext()

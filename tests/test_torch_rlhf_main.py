@@ -9,7 +9,8 @@ WavLM HF dir and a UniSpeech-named ECAPA checkpoint with
 steps write finite metrics, a checkpoint and the first reward's wavs, and
 every completion is transcribed, scored and embedded by its backend; a
 step through the serving engine (``--rollout_via_engine``) runs with the
-default rewards; ``--sampler_devices 1`` raises; an HF dir as
+default rewards; ``--sampler_devices 1`` in one process raises JAX's
+``ValueError`` (no rank is left to train); an HF dir as
 ``--model_dir`` (a tiny Llama beside the Llama-3-style fixture tokenizer)
 trains fp32 weights (JAX's import) under the config's bf16 compute, with
 remat, its tokenizer extended to the model's ids, with rollouts through
@@ -162,8 +163,8 @@ def test_engine_rollouts_and_refusals(tmp_path, data):
     eng = res.trainer._engine
     assert eng is not None and res.steps[0]["decode_steps"] > 0
     assert np.isfinite(res.steps[0]["loss"]) and not res.backends
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _run(path, data, "--sampler_devices", "1")
+    with pytest.raises(ValueError, match="n_sampler=1 must leave >=1 trainer device of 1"):
+        _run(path, data, "--sampler_devices", "1")  # JAX's error: one process, no trainer
 
 
 def test_hf_dir_policy(tmp_path, data):

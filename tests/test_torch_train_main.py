@@ -102,8 +102,10 @@ def test_dry_run_takes_one_step_and_writes_nothing(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path, monkeypatch):
-    """Tensor parallelism (``tp`` over two ranks of torchrun) raises before
-    any rendezvous; a dir without a tokenizer.json raises."""
+    """Tensor parallelism (``tp`` over two ranks of torchrun) passes the
+    mesh check that runs before any rendezvous, on a ``(1, 1, 2)`` mesh (the
+    two ranks' run is ``test_torch_tensor_parallel``'s); a dir without a
+    tokenizer.json raises."""
     path, cfg = _config(tmp_path)
     cfg["training"]["strategy"] = "tp"
     with open(path, "w") as f:
@@ -112,8 +114,8 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
                 "MASTER_PORT": "1"}
     for k, v in launcher.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _run(path)
+    assert train_main.world_size_to_come() == 2
+    assert train_main.check_mesh(ExperimentConfig.from_json(path), 2) == (1, 1, 2)
     for k in launcher:
         monkeypatch.delenv(k)
     cfg["training"].pop("strategy")

@@ -28,9 +28,21 @@ slot draws its noise from a counter-based generator keyed by its request's
 seed and the number of tokens it has generated, so a request's tokens do not
 depend on which other requests share the pool, nor on K or pipelining.
 
+``mesh``: tensor-parallel serving (the JAX engines' ``mesh=``). With a mesh
+that splits ``tensor`` the engine takes this rank's blocks of the params
+(``parallel.sharding.ShardLayout(full, mesh).shard(full)``; so does
+``update_params``), runs the layers tensor-parallel (``parallel/tensor.py``)
+and allocates every KV cache (the pool, int8 ``q`` and ``scale``, the
+prefill and park caches) with the rank's ``n_kv_heads/t`` heads, or all of
+them where the heads do not divide (JAX's engine then replicates the KV).
+The decode kernels (C, B, and the paged kernel D, where JAX falls back to
+XLA's gather attention under a mesh) run per rank on the local heads.
+Per-slot state, sampling and every host decision are the same on every rank
+of the group: each rank ends a step with the same logits. Every rank runs
+the same calls (submit, poll, cancel) in the same order.
+
 Left out of this port, with the constructor arguments that exist only for
 them (they are not accepted):
-- ``mesh``: tensor-parallel serving, the parallelism slice;
 - ``delta_kv`` and the paged ``persistent_read_cache``: they keep XLA from
   copying a loop-carried cache; here the decode step writes its K/V rows in
   place;
@@ -55,6 +67,7 @@ from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.ops import cuda_build, sampling
 from tts_max_tpu_torch.ops.sampling import SamplingParams
+from tts_max_tpu_torch.parallel.tensor import TensorParallel
 
 
 @dataclass
@@ -144,6 +157,7 @@ class InferenceEngine:
         park_len: int | None = None,
         park_groups_per_poll: int = 0,
         device="cuda",
+        mesh=None,
     ):
         """``vocab_window=(lo, size)`` constrains sampling to ids [lo,
         lo+size) (``SpeechVocab.generation_window()`` for TTS): logits and
@@ -178,6 +192,7 @@ class InferenceEngine:
             raise ValueError("steps_per_dispatch must be >= 1")
         self.params = params
         self.cfg = cfg
+        self.tp = TensorParallel.create(cfg, mesh, params)
         self.max_batch = max_batch
         self.max_len = max_len
         self.sp = sp
@@ -191,7 +206,7 @@ class InferenceEngine:
         )
         self.vocab_window = vocab_window
         self._lo = vocab_window[0] if vocab_window else 0
-        self._head = (llama.slice_logits_head(params, cfg, *vocab_window)
+        self._head = (llama.slice_logits_head(params, cfg, *vocab_window, tp=self.tp)
                       if vocab_window else None)
         width = vocab_window[1] if vocab_window else cfg.vocab_size
 
@@ -242,7 +257,8 @@ class InferenceEngine:
             self.park_len = max(step, (min(park_len or min(512, max_len), max_len)
                                        // step) * step)
             self.park_cache = llama.init_kv_cache(cfg, self.park_rows, self.park_len,
-                                                  quantized=quantized_kv, device=dev)
+                                                  quantized=quantized_kv, device=dev,
+                                                  tp=self.tp)
             self.park_counts = torch.zeros(self.park_rows, width, dtype=torch.int32,
                                            device=dev)
             self.park_preview = torch.zeros(self.park_rows, dtype=torch.int32, device=dev)
@@ -279,7 +295,8 @@ class InferenceEngine:
                              f"not on {self.device}")
         self.params = params
         if self.vocab_window:
-            self._head = llama.slice_logits_head(params, self.cfg, *self.vocab_window)
+            self._head = llama.slice_logits_head(params, self.cfg, *self.vocab_window,
+                                                 tp=self.tp)
 
     def has_work(self) -> bool:
         return (bool(self._queue) or bool(self._parked_entries)
@@ -412,10 +429,10 @@ class InferenceEngine:
         g = max(self.prefill_group_sizes)
         for bucket in sorted({_bucket(b, self._bucket_step()) for b in prompt_buckets}):
             small = llama.init_kv_cache(self.cfg, g, bucket, quantized=self.quantized_kv,
-                                        device=self.device)
+                                        device=self.device, tp=self.tp)
             tokens = torch.zeros(g, bucket, dtype=torch.int32, device=self.device)
             ones = torch.ones(g, dtype=torch.int32, device=self.device)
-            llama.prefill(self.params, self.cfg, tokens, ones, small, self._head)
+            llama.prefill(self.params, self.cfg, tokens, ones, small, self._head, tp=self.tp)
         if self.prefill_ahead:
             # one park group into the first park rows (a park writes every
             # row that an attach of it reads) and one attach of row 0 into
@@ -435,7 +452,7 @@ class InferenceEngine:
 
     def _make_cache(self):
         return llama.init_kv_cache(self.cfg, self.max_batch, self.max_len,
-                                   quantized=self.quantized_kv, device=self.device)
+                                   quantized=self.quantized_kv, device=self.device, tp=self.tp)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array to the engine's device without a host sync: through
@@ -553,9 +570,9 @@ class InferenceEngine:
         tokens = self._upload(padded)
         ns = meta_i[:, 1].int()
         small = llama.init_kv_cache(self.cfg, len(reqs), bucket, quantized=self.quantized_kv,
-                                    device=self.device)
+                                    device=self.device, tp=self.tp)
         logits, small = llama.prefill(self.params, self.cfg, tokens, ns, small,
-                                      logits_head=self._head)
+                                      logits_head=self._head, tp=self.tp)
         mask = torch.arange(bucket, device=self.device)[None, :] < ns[:, None]
         return meta_i, meta_f, logits, small, self._prompt_counts(tokens, mask)
 
@@ -789,7 +806,7 @@ class InferenceEngine:
         # int8 form, in JAX as here)
         logits, _ = llama.decode_step(self.params, self.cfg, self.cache, toks,
                                       lengths_w, logits_head=self._head,
-                                      ragged=not self.quantized_kv)
+                                      ragged=not self.quantized_kv, tp=self.tp)
         return logits
 
     @torch.no_grad()
@@ -939,6 +956,7 @@ class PagedInferenceEngine(InferenceEngine):
         park_len: int | None = None,
         park_groups_per_poll: int = 0,
         device="cuda",
+        mesh=None,
     ):
         if max_len % block_size:
             raise ValueError("max_len must be a multiple of block_size")
@@ -967,7 +985,7 @@ class PagedInferenceEngine(InferenceEngine):
             quantized_kv=quantized_kv, vocab_window=vocab_window, max_top_k=max_top_k,
             steps_per_dispatch=steps_per_dispatch, admission_policy=admission_policy,
             prefill_ahead=prefill_ahead, park_rows=park_rows, park_len=park_len,
-            park_groups_per_poll=park_groups_per_poll, device=device,
+            park_groups_per_poll=park_groups_per_poll, device=device, mesh=mesh,
         )
 
     def stats(self) -> dict:
@@ -984,7 +1002,8 @@ class PagedInferenceEngine(InferenceEngine):
 
     def _make_cache(self):
         return llama.init_paged_kv_cache(self.cfg, self.num_blocks, self.block_size,
-                                         quantized=self.quantized_kv, device=self.device)
+                                         quantized=self.quantized_kv, device=self.device,
+                                         tp=self.tp)
 
     def _bucket_step(self) -> int:
         # prompt buckets tile exactly into blocks for the prefill scatter
@@ -1090,7 +1109,8 @@ class PagedInferenceEngine(InferenceEngine):
 
     def _decode_step(self, toks, lengths_w, table):
         logits, _ = llama.decode_step_paged(self.params, self.cfg, self.cache, toks,
-                                            lengths_w, table, logits_head=self._head)
+                                            lengths_w, table, logits_head=self._head,
+                                            tp=self.tp)
         return logits
 
     def _scatter_prefill(self, small, slots: torch.Tensor, bucket: int, items) -> None:
@@ -1209,7 +1229,7 @@ class PagedInferenceEngine(InferenceEngine):
         start = torch.full((1,), prefix_len, dtype=torch.int32, device=self.device)
         logits, small = llama.decode_window(self.params, self.cfg, small,
                                             tokens[:, prefix_len:], start,
-                                            logits_head=self._head)
+                                            logits_head=self._head, tp=self.tp)
         llama.scatter_suffix_to_blocks(self.cache, small, blocks[m:], prefix_len)
         mask = torch.arange(bucket, device=self.device)[None, :] < n
         self._write_slot_state(meta_i, meta_f, logits[:, n - prefix_len - 1],

@@ -7,6 +7,12 @@ has emitted EOS or ``max_new_tokens`` are out. The JAX package stages the
 cache and batches cache writes (delta-KV) to keep XLA from copying a
 loop-carried cache; here the cache is updated in place, so neither is
 needed, and greedy ids match the JAX loop with or without its delta-KV.
+
+With a ``mesh`` that splits ``tensor`` (JAX's generate under ``with
+mesh:``), ``params`` are this rank's blocks (``parallel.sharding.
+ShardLayout(full, mesh).shard(full)``): the layers run tensor-parallel
+(``parallel/tensor.py``), the cache holds the rank's KV heads, and every
+rank of the group returns the same ids.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.ops import sampling
+from tts_max_tpu_torch.parallel.tensor import TensorParallel
 
 
 class GenerateResult(NamedTuple):
@@ -51,6 +58,7 @@ def generate(
     vocab_window: tuple[int, int] | None = None,
     min_new_tokens: int = 0,
     device="cuda",
+    mesh=None,
 ) -> GenerateResult:
     """prompt_tokens: right-padded [B, S]; prompt_lengths: [B]; returns the
     generated tokens only.
@@ -76,11 +84,14 @@ def generate(
         raise ValueError("cache_len too small for prompt + max_new_tokens")
 
     t0 = time.perf_counter()
+    tp = TensorParallel.create(cfg, mesh, params)
     lo = vocab_window[0] if vocab_window else 0
     n_vocab = vocab_window[1] if vocab_window else cfg.vocab_size
-    head = llama.slice_logits_head(params, cfg, *vocab_window) if vocab_window else None
-    cache = llama.init_kv_cache(cfg, b, cache_len, quantized=quantized_kv, device=dev)
-    logits, cache = llama.prefill(params, cfg, tokens, lengths, cache, logits_head=head)
+    head = (llama.slice_logits_head(params, cfg, *vocab_window, tp=tp) if vocab_window
+            else None)
+    cache = llama.init_kv_cache(cfg, b, cache_len, quantized=quantized_kv, device=dev, tp=tp)
+    logits, cache = llama.prefill(params, cfg, tokens, lengths, cache, logits_head=head,
+                                  tp=tp)
     prompt_mask = torch.arange(s, device=dev)[None, :] < lengths[:, None]
     if vocab_window:
         token_counts = sampling.counts_from_tokens_windowed(tokens, prompt_mask,
@@ -113,7 +124,7 @@ def generate(
         token_counts.index_put_((rows, idx), inc, accumulate=True)
         gen_counts.index_put_((rows, idx), inc, accumulate=True)
         logits, cache = llama.decode_step(params, cfg, cache, tok, lengths,
-                                          logits_head=head)
+                                          logits_head=head, tp=tp)
         lengths += inc
         done |= newly_done
         steps += 1
@@ -126,7 +137,7 @@ def generate(
 
 def make_generate_fn(cfg, sp, max_new_tokens, eos_id, pad_id=0, cache_len=None,
                      quantized_kv=False, vocab_window=None, min_new_tokens=0,
-                     device="cuda"):
+                     device="cuda", mesh=None):
     """``fn(params, prompt_tokens, prompt_lengths, generator)`` with every
     other argument of ``generate`` fixed."""
 
@@ -136,6 +147,7 @@ def make_generate_fn(cfg, sp, max_new_tokens, eos_id, pad_id=0, cache_len=None,
             max_new_tokens=max_new_tokens, eos_id=eos_id, pad_id=pad_id,
             cache_len=cache_len, quantized_kv=quantized_kv,
             vocab_window=vocab_window, min_new_tokens=min_new_tokens, device=device,
+            mesh=mesh,
         )
 
     return fn

@@ -17,6 +17,13 @@ over a contiguous cache, or ``ragged_decode_attention`` (kernel C) when the
 caller asks for it (the contiguous serving engine does), and the paged
 kernel (``ops/paged_attention.py``) for ``decode_step_paged`` over a block
 pool.
+Under a mesh that splits ``tensor`` every forward below takes ``tp`` (a
+``parallel.tensor.TensorParallel``) and this rank's blocks of the params:
+the attention block then runs on local heads (``n_heads/t`` and
+``n_kv_heads/t``) through the same kernels, the caches hold the local KV
+heads, and the collectives are ``tp``'s (that module says which block runs
+split and which whole).
+
 Both decode steps write the new token's K/V row into the cache in place,
 then attend over ``lengths + 1`` rows: PyTorch updates a tensor in place,
 so the JAX package's delta-KV machinery, which exists to stop XLA copying a
@@ -168,16 +175,27 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
     from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    L, wdt = cfg.n_layers, cfg.dtype
+    return _param_tree(
+        cfg, lambda shape, std: (torch.randn(shape, generator=gen, device=dev) * std
+                                 ).to(cfg.dtype),
+        lambda shape: torch.ones(shape, device=dev))
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(wdt)
+
+def abstract_params(cfg: LlamaConfig) -> Params:
+    """The parameter tree of ``cfg`` as meta tensors: shapes and dtypes."""
+    return _param_tree(cfg, lambda shape, std: torch.empty(shape, dtype=cfg.dtype,
+                                                           device="meta"),
+                       lambda shape: torch.empty(shape, device="meta"))
+
+
+def _param_tree(cfg: LlamaConfig, normal, ones_like) -> Params:
+    L = cfg.n_layers
 
     def dense(shape, in_dim):
         return {"kernel": normal(shape, in_dim ** -0.5)}
 
     def ones(*shape):
-        return {"scale": torch.ones(shape, device=dev)}
+        return {"scale": ones_like(shape)}
 
     params = {
         "embed": {"embedding": normal((cfg.vocab_size, cfg.dim), 0.02)},
@@ -236,38 +254,76 @@ def embedding_shape(params: Params) -> tuple[int, int]:
     return q.shape[0], q.shape[1] * (2 if "q4" in emb else 1)
 
 
-def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def _embed(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    if tp is not None and tp.embed:
+        return tp.lookup(params["embed"]["embedding"], tokens, cfg.dtype)
     return embed_lookup(params["embed"]["embedding"], tokens, cfg.dtype)
 
 
-def _attn_block(h, lp, cos, sin, cfg: LlamaConfig):
-    b, s, _ = h.shape
+def _block(lp, block: str, tp):
+    """(the block's kernels, whether they run split over ``tp``'s group)."""
+    w = {n: v["kernel"] for n, v in lp[block].items()}
+    return (w, False) if tp is None else tp.block_weights(block, w)
+
+
+def _attn_in(h, lp, cfg: LlamaConfig, tp):
+    """The attention block's entry: (normed input, behind ``tp``'s entry
+    when the block runs split; its kernels; whether it does)."""
+    w, split = _block(lp, "attn", tp)
     x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
-    q = matmul(x, lp["attn"]["wq"]["kernel"]).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = matmul(x, lp["attn"]["wk"]["kernel"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = matmul(x, lp["attn"]["wv"]["kernel"]).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return (tp.enter(x) if split else x), w, split
+
+
+def _attn_out(h, o, w, split, tp):
+    """``h`` plus the output projection of the heads ``o`` [..., Hq, D]."""
+    out = matmul(o.reshape(*o.shape[:-2], -1), w["wo"])
+    return h + (tp.exit(out) if split else out)
+
+
+def _attn_block(h, lp, cos, sin, cfg: LlamaConfig, tp=None):
+    b, s, _ = h.shape
+    x, w, split = _attn_in(h, lp, cfg, tp)
+    q = matmul(x, w["wq"]).view(b, s, -1, cfg.head_dim)
+    k = matmul(x, w["wk"]).view(b, s, -1, cfg.head_dim)
+    v = matmul(x, w["wv"]).view(b, s, -1, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=True)
-    return h + matmul(o.reshape(b, s, cfg.q_dim), lp["attn"]["wo"]["kernel"]), k, v
+    return _attn_out(h, o, w, split, tp), k, v
 
 
-def _mlp_block(h, lp, cfg: LlamaConfig):
+def _mlp_block(h, lp, cfg: LlamaConfig, tp=None):
+    w, split = _block(lp, "mlp", tp)
     x = rms_norm(h, lp["mlp_norm"]["scale"], cfg.norm_eps)
-    gate = matmul(x, lp["mlp"]["w_gate"]["kernel"])
-    up = matmul(x, lp["mlp"]["w_up"]["kernel"])
-    return h + matmul(F.silu(gate) * up, lp["mlp"]["w_down"]["kernel"])
+    if split:
+        x = tp.enter(x)
+    out = matmul(F.silu(matmul(x, w["w_gate"])) * matmul(x, w["w_up"]), w["w_down"])
+    return h + (tp.exit(out) if split else out)
 
 
-def _logits(h, params: Params, cfg: LlamaConfig, logits_head=None):
+def _logits(h, params: Params, cfg: LlamaConfig, logits_head=None, tp=None):
     """Final norm and LM head: fp32 logits over the vocab, or over the
-    window ``logits_head`` (a ``slice_logits_head`` result) covers."""
+    window ``logits_head`` (a ``slice_logits_head`` result, whole on every
+    rank under ``tp``) covers. A vocab-split head's blocks are joined."""
+    if logits_head is None and tp is not None and tp.head:
+        return tp.gather_logits(local_logits(h, params, cfg, tp)[0])
     h = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
     if cfg.tie_embeddings:
         head = params["embed"]["embedding"] if logits_head is None else logits_head
         return tied_logits(h, head)
     head = params["lm_head"]["kernel"] if logits_head is None else logits_head
     return matmul(h, head).float()
+
+
+def local_logits(h, params: Params, cfg: LlamaConfig, tp):
+    """Final norm and this rank's block of a vocab-split head: (fp32
+    logits [..., V/t], the block's first id)."""
+    h = tp.enter(rms_norm(h, params["norm"]["scale"], cfg.norm_eps))
+    if cfg.tie_embeddings:
+        emb = params["embed"]["embedding"]
+        return tied_logits(h, emb), tp.rank * emb.shape[0]
+    k = params["lm_head"]["kernel"]
+    return matmul(h, k).float(), tp.rank * k.shape[1]
 
 
 def _column_window(levels: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -280,10 +336,12 @@ def _column_window(levels: torch.Tensor, a: int, b: int) -> torch.Tensor:
     return buf[:, :cols]
 
 
-def slice_logits_head(params: Params, cfg: LlamaConfig, lo: int, size: int):
+def slice_logits_head(params: Params, cfg: LlamaConfig, lo: int, size: int, tp=None):
     """Output-head rows [lo, lo+size) for window-constrained decode, in the
     form ``_logits(..., logits_head=...)`` expects: embedding rows when
-    tied, kernel columns otherwise (plain or quantized).
+    tied, kernel columns otherwise (plain or quantized). Under ``tp`` a
+    vocab-split head's window is built whole on every rank (one sum over
+    the group: build it once a weight update).
 
     Only the speech-token block (and the markers after it) is a legal
     output while speech is generated, so the head reads only those rows.
@@ -291,6 +349,10 @@ def slice_logits_head(params: Params, cfg: LlamaConfig, lo: int, size: int):
     the packed axis. A quantized lm_head is sliced along its columns: an
     int4 one packs vocab pairs along them, so its bounds must be even, and
     its levels are copied once into a buffer with aligned rows."""
+    if tp is not None and tp.head:
+        if cfg.tie_embeddings:
+            return tp.window_head(params["embed"]["embedding"], lo, size, 0)
+        return tp.window_head(params["lm_head"]["kernel"], lo, size, 1)
     if cfg.tie_embeddings:
         emb = params["embed"]["embedding"]
         if is_quantized(emb):
@@ -326,11 +388,11 @@ def _unbind_layers(params: Params, n_layers: int) -> list[Params]:
     return [pick(stacked, i) for i in range(n_layers)]
 
 
-def _decoder_layer(h, lp, cos, sin, cfg: LlamaConfig, gather_layer=None):
+def _decoder_layer(h, lp, cos, sin, cfg: LlamaConfig, gather_layer=None, tp=None):
     if gather_layer is not None:
         lp = gather_layer(lp)
-    h, _, _ = _attn_block(h, lp, cos, sin, cfg)
-    return _mlp_block(h, lp, cfg)
+    h, _, _ = _attn_block(h, lp, cos, sin, cfg, tp)
+    return _mlp_block(h, lp, cfg, tp)
 
 
 def _dots_context():
@@ -346,42 +408,45 @@ def _dots_context():
 
 
 def forward_hidden(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-                   gather_layer=None) -> torch.Tensor:
+                   gather_layer=None, tp=None) -> torch.Tensor:
     """Causal forward through the layer stack only: tokens [B, S] -> PRE-norm
     hidden states [B, S, D]. Callers apply ``_logits`` (the final norm and
     head) or, in training, a chunked loss that never holds the full
     [B, S, V] logits (``training/train_step.py``). With ``cfg.remat`` each
     layer runs under ``torch.utils.checkpoint`` (non-reentrant).
     ``gather_layer`` (FSDP) maps a layer's param shards to its full params
-    inside the layer, so under remat its recompute gathers them again."""
+    inside the layer, so under remat its recompute gathers them again (and
+    makes ``tp``'s row-parallel sums again)."""
     cos, sin = rope_table(cfg.head_dim, tokens.shape[1], cfg.rope_theta,
                           cfg.use_llama3_rope_scaling, tokens.device)
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, tp)
     for lp in _unbind_layers(params, cfg.n_layers):
         if cfg.remat:
             kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
-            h = checkpoint(_decoder_layer, h, lp, cos, sin, cfg, gather_layer,
+            h = checkpoint(_decoder_layer, h, lp, cos, sin, cfg, gather_layer, tp,
                            use_reentrant=False, **kw)
         else:
-            h = _decoder_layer(h, lp, cos, sin, cfg, gather_layer)
+            h = _decoder_layer(h, lp, cos, sin, cfg, gather_layer, tp)
     return h
 
 
-def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
     """Full-sequence causal forward: tokens [B, S] -> logits [B, S, V] (fp32)."""
-    return _logits(forward_hidden(params, cfg, tokens), params, cfg)
+    return _logits(forward_hidden(params, cfg, tokens, tp=tp), params, cfg, tp=tp)
 
 
 # --- KV-cached generation ---------------------------------------------------
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, *,
-                  quantized: bool = False, device="cuda"):
+                  quantized: bool = False, device="cuda", tp=None):
     """Zeroed KV cache ``{"k", "v"}`` of [L, B, max_len, Hkv, D] in the
     compute dtype, or with ``quantized`` int8 payloads ``{"q", "scale"}``
-    with fp32 scales [L, B, max_len, Hkv] per (token, head)."""
+    with fp32 scales [L, B, max_len, Hkv] per (token, head). Under ``tp``,
+    Hkv is this rank's (``tp.kv_heads``)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    heads = cfg.n_kv_heads if tp is None else tp.kv_heads(cfg)
+    shape = (cfg.n_layers, batch, max_len, heads, cfg.head_dim)
     if quantized:
         def entry():
             return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -426,13 +491,15 @@ def grow_cache(cache, new_len: int):
 
 
 def init_paged_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                        dtype=None, *, quantized: bool = False, device="cuda"):
+                        dtype=None, *, quantized: bool = False, device="cuda", tp=None):
     """Block-pool KV cache for paged serving: tensors [L, num_blocks,
     block_size, Hkv, D] (int8 payloads with fp32 scales [L, num_blocks,
     block_size, Hkv] when ``quantized``); sequences own ordered block-id
-    lists (the engine's block table) instead of max_len reservations."""
+    lists (the engine's block table) instead of max_len reservations.
+    Under ``tp``, Hkv is this rank's."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    heads = cfg.n_kv_heads if tp is None else tp.kv_heads(cfg)
+    shape = (cfg.n_layers, num_blocks, block_size, heads, cfg.head_dim)
     if quantized:
         def entry():
             return {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -504,7 +571,7 @@ def _write_cache(entry, i: int, index, x: torch.Tensor) -> None:
 
 
 def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-            lengths: torch.Tensor, cache, logits_head=None):
+            lengths: torch.Tensor, cache, logits_head=None, tp=None):
     """Process right-padded prompts [B, S]; fill cache[:, :, :S] in place;
     return (last-real-token logits [B, V] or [B, size], cache).
 
@@ -514,22 +581,22 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     cos, sin = rope_table(cfg.head_dim, s, cfg.rope_theta,
                           cfg.use_llama3_rope_scaling, tokens.device)
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, tp)
     rows = (slice(None), slice(0, s))
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h, k, v = _attn_block(h, lp, cos, sin, cfg)
+        h, k, v = _attn_block(h, lp, cos, sin, cfg, tp)
         _write_cache(cache["k"], i, rows, k)
         _write_cache(cache["v"], i, rows, v)
-        h = _mlp_block(h, lp, cfg)
+        h = _mlp_block(h, lp, cfg, tp)
     # gather the last real hidden state before the head: the [B, S, V]
     # logits are never materialized
     h_last = h[torch.arange(b, device=h.device), lengths.long() - 1]
-    return _logits(h_last, params, cfg, logits_head), cache
+    return _logits(h_last, params, cfg, logits_head, tp), cache
 
 
 def _decode_layers(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
-                   positions: torch.Tensor, rows, attend, max_pos: int, logits_head):
+                   positions: torch.Tensor, rows, attend, max_pos: int, logits_head, tp):
     """The layer loop of one decode step for tokens [B] at ``positions``
     [B]: writes each layer's K/V rows at ``rows`` (an index into one
     layer's cache) in place and takes attention from ``attend(i, q)``."""
@@ -537,25 +604,24 @@ def _decode_layers(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor
     cos, sin = rope_table(cfg.head_dim, max_pos, cfg.rope_theta,
                           cfg.use_llama3_rope_scaling, tokens.device)
     pos = positions.long()[:, None]  # [B, 1]: one position per sequence
-    h = _embed(params, tokens, cfg)  # [B, D]
+    h = _embed(params, tokens, cfg, tp)  # [B, D]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
-        q = matmul(x, lp["attn"]["wq"]["kernel"]).view(b, 1, cfg.n_heads, cfg.head_dim)
-        k = matmul(x, lp["attn"]["wk"]["kernel"]).view(b, 1, cfg.n_kv_heads, cfg.head_dim)
-        v = matmul(x, lp["attn"]["wv"]["kernel"]).view(b, cfg.n_kv_heads, cfg.head_dim)
+        x, w, split = _attn_in(h, lp, cfg, tp)
+        q = matmul(x, w["wq"]).view(b, 1, -1, cfg.head_dim)
+        k = matmul(x, w["wk"]).view(b, 1, -1, cfg.head_dim)
+        v = matmul(x, w["wv"]).view(b, -1, cfg.head_dim)
         q = apply_rope(q, cos, sin, pos)[:, 0]
         k = apply_rope(k, cos, sin, pos)[:, 0]
         _write_cache(cache["k"], i, rows, k)
         _write_cache(cache["v"], i, rows, v)
-        o = attend(i, q)
-        h = h + matmul(o.reshape(b, cfg.q_dim), lp["attn"]["wo"]["kernel"])
-        h = _mlp_block(h, lp, cfg)
-    return _logits(h, params, cfg, logits_head), cache
+        h = _attn_out(h, attend(i, q), w, split, tp)
+        h = _mlp_block(h, lp, cfg, tp)
+    return _logits(h, params, cfg, logits_head, tp), cache
 
 
 def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
-                lengths: torch.Tensor, logits_head=None, *, ragged: bool = False):
+                lengths: torch.Tensor, logits_head=None, *, ragged: bool = False, tp=None):
     """One autoregressive step for tokens [B]; ``lengths`` [B] int32 are the
     valid cache rows BEFORE this token (also its position). Writes the
     token's K/V rows at ``lengths`` in place, attends over ``lengths + 1``
@@ -578,7 +644,7 @@ def decode_step(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
         return kernel(q, _layer_cache(cache["k"], i), _layer_cache(cache["v"], i), attend)
 
     return _decode_layers(params, cfg, cache, tokens, lengths, rows, attn,
-                          cache_max_len(cache), logits_head)
+                          cache_max_len(cache), logits_head, tp)
 
 
 _PAGED_VARIANTS = ("dense", "dense2", "dma", "grid", "xla")
@@ -602,7 +668,7 @@ def _paged_variant(use_pallas: bool | None = None) -> str:
 
 def decode_step_paged(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
                       lengths: torch.Tensor, table: torch.Tensor, *,
-                      use_pallas: bool | None = None, logits_head=None):
+                      use_pallas: bool | None = None, logits_head=None, tp=None):
     """One autoregressive step against a block-pool cache: writes the new
     token's K/V row at block ``table[b, lengths[b] // bs]``, offset
     ``lengths[b] % bs``, in place, then attends through the table over
@@ -630,11 +696,11 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, cache, tokens: torch.Ten
                      table, attend)
 
     return _decode_layers(params, cfg, cache, tokens, lengths, rows, attn,
-                          table.shape[1] * bs, logits_head)
+                          table.shape[1] * bs, logits_head, tp)
 
 
 def decode_window(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
-                  lengths: torch.Tensor, logits_head=None):
+                  lengths: torch.Tensor, logits_head=None, tp=None):
     """Chunked decode: a W-token window in one forward. tokens [B, W] sit at
     positions lengths .. lengths + W - 1; their K/V rows are written into the
     contiguous cache in place and each attends the cache up to and
@@ -645,19 +711,19 @@ def decode_window(params: Params, cfg: LlamaConfig, cache, tokens: torch.Tensor,
                           cfg.use_llama3_rope_scaling, tokens.device)
     pos = lengths.long()[:, None] + torch.arange(w, device=tokens.device)[None, :]
     rows = (torch.arange(b, device=tokens.device)[:, None], pos)
-    h = _embed(params, tokens, cfg)  # [B, W, D]
+    h = _embed(params, tokens, cfg, tp)  # [B, W, D]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        x = rms_norm(h, lp["attn_norm"]["scale"], cfg.norm_eps)
-        q = matmul(x, lp["attn"]["wq"]["kernel"]).view(b, w, cfg.n_heads, cfg.head_dim)
-        k = matmul(x, lp["attn"]["wk"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
-        v = matmul(x, lp["attn"]["wv"]["kernel"]).view(b, w, cfg.n_kv_heads, cfg.head_dim)
+        x, wts, split = _attn_in(h, lp, cfg, tp)
+        q = matmul(x, wts["wq"]).view(b, w, -1, cfg.head_dim)
+        k = matmul(x, wts["wk"]).view(b, w, -1, cfg.head_dim)
+        v = matmul(x, wts["wv"]).view(b, w, -1, cfg.head_dim)
         q = apply_rope(q, cos, sin, pos)
         k = apply_rope(k, cos, sin, pos)
         _write_cache(cache["k"], i, rows, k)
         _write_cache(cache["v"], i, rows, v)
         o = window_attention(q, _layer_cache(cache["k"], i),
                              _layer_cache(cache["v"], i), lengths).to(h.dtype)
-        h = h + matmul(o.reshape(b, w, cfg.q_dim), lp["attn"]["wo"]["kernel"])
-        h = _mlp_block(h, lp, cfg)
-    return _logits(h, params, cfg, logits_head), cache
+        h = _attn_out(h, o, wts, split, tp)
+        h = _mlp_block(h, lp, cfg, tp)
+    return _logits(h, params, cfg, logits_head, tp), cache

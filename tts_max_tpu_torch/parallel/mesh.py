@@ -6,11 +6,15 @@ The axes keep the JAX package's roles:
 - ``data``: batch parallelism (DDP): params replicated, grads summed;
 - ``fsdp``: batch parallelism with every rule-sharded param and its Adam
   moments split over the ranks (FSDP / ZeRO);
-- ``tensor``: tensor parallelism, not ported yet (ROADMAP.md queue 1 item
-  4b): a mesh with ``tensor > 1`` raises before any rendezvous.
+- ``tensor``: tensor parallelism (Megatron's layout): the rules split the
+  vocab of the embedding and head, the output columns of ``wq``/``wk``/
+  ``wv``/``w_gate``/``w_up`` and the input rows of ``wo``/``w_down``; the
+  tensor peers of a rank read the same batch rows.
 
 Ranks lie on the mesh in row-major order, ``rank = (d * fsdp + f) * tensor +
-t``, as JAX's device array. Where JAX's collectives come from GSPMD, the
+t``, as JAX's device array. A mesh may also lie over a list of ranks (a
+sub-mesh, as RLHF's trainer/sampler topology makes two), in the list's
+order. Where JAX's collectives come from GSPMD, the
 port calls them itself (``collectives.py``) on process groups made here.
 
 A process joins a group whenever a launcher's variables are present, world
@@ -169,14 +173,6 @@ def mesh_for_strategy(strategy: Strategy, n_devices: int) -> tuple[int, int, int
     raise ValueError(f"unknown strategy {strategy}")
 
 
-def check_no_tensor_axis(shape: tuple[int, int, int], what: str = "training") -> None:
-    """Tensor parallelism is not ported: refuse ``tensor > 1``."""
-    if shape[2] > 1:
-        raise NotImplementedError(
-            f"{what} over the mesh (data, fsdp, tensor) = {tuple(shape)}: tensor "
-            "parallelism is ROADMAP.md queue 1 item 4b")
-
-
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The ``(data, fsdp, tensor)`` mesh of a group: its shape, this rank's
@@ -184,12 +180,16 @@ class Mesh:
     fsdp) through this rank. ``shards_params`` says whether rule-sharded
     params are split over ``fsdp``: under the fsdp strategy they are at
     every size, size 1 included, so that one rank runs the same gathers and
-    reduce-scatters as many."""
+    reduce-scatters as many. ``splits_tensor`` says the same of ``tensor``:
+    true under ``tp`` and ``fsdp_tp`` at every size, where one rank runs
+    the tensor-parallel layers with one block a leaf and makes every
+    collective."""
 
     shape: tuple[int, int, int]
     coords: tuple[int, int, int] = (0, 0, 0)
     groups: Mapping[str, object] = dataclasses.field(default_factory=dict)
     shards_params: bool = False
+    splits_tensor: bool = False
 
     def size(self, axis: str) -> int:
         if axis == BATCH:
@@ -216,27 +216,35 @@ def _axis_members(shape, axes) -> list[tuple[int, ...]]:
     return [tuple(g) for g in groups.values()]
 
 
-def build_mesh(shape: tuple[int, int, int], strategy: Strategy | None = None) -> Mesh:
-    """The mesh of ``shape`` over the default group, whose world size it must
-    equal. Every rank makes every axis group, in one order (``new_group`` is
-    collective); groups with the same ranks are made once."""
+def build_mesh(shape: tuple[int, int, int], strategy: Strategy | None = None,
+               ranks=None) -> Mesh | None:
+    """The mesh of ``shape`` over ``ranks`` (default: the whole group, whose
+    world size ``shape`` must then equal), or None on a rank outside them.
+    Every rank of the world calls it, in one order, member or not:
+    ``new_group`` is collective over the world, so every rank makes every
+    axis group; groups with the same ranks are made once."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs a process group (initialize_distributed)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if shape[0] * shape[1] * shape[2] != world:
-        raise ValueError(f"mesh {tuple(shape)} != world size {world}")
-    check_no_tensor_axis(shape)
+    ranks = tuple(range(world)) if ranks is None else tuple(ranks)
+    if shape[0] * shape[1] * shape[2] != len(ranks):
+        raise ValueError(f"mesh {tuple(shape)} != {len(ranks)} ranks")
     d, f, t = shape
-    coords = (rank // (f * t), (rank // t) % f, rank % t)
     made: dict[tuple[int, ...], object] = {}
     groups = {}
     for name, axes in ((DATA_AXIS, (DATA_AXIS,)), (FSDP_AXIS, (FSDP_AXIS,)),
-                       (BATCH, (DATA_AXIS, FSDP_AXIS))):
+                       (TENSOR_AXIS, (TENSOR_AXIS,)), (BATCH, (DATA_AXIS, FSDP_AXIS))):
         for members in _axis_members(shape, axes):
+            members = tuple(ranks[i] for i in members)
             if members not in made:
                 made[members] = dist.new_group(list(members))
             if rank in members:
                 groups[name] = made[members]
+    if rank not in ranks:
+        return None
+    i = ranks.index(rank)
+    coords = (i // (f * t), (i // t) % f, i % t)
     s = Strategy(strategy).canonical() if strategy is not None else None
     return Mesh(tuple(shape), coords, groups,
-                shards_params=f > 1 or s in (Strategy.FSDP, Strategy.FSDP_TP))
+                shards_params=f > 1 or s in (Strategy.FSDP, Strategy.FSDP_TP),
+                splits_tensor=t > 1 or s in (Strategy.TP, Strategy.FSDP_TP))

@@ -6,8 +6,10 @@ stacked ``[L, ...]`` layer leaves; a spec is a plain tuple of axis names
 (or None) a dim. ``params_specs`` applies JAX's divisibility rule: an axis
 that does not divide its dim, or has size 1, is dropped and the dim is
 replicated. ``ShardLayout`` holds, for each leaf, the dim split over
-``fsdp`` (None: replicated): rank i of the fsdp group keeps block i of it,
-and so do the leaf's Adam moments (ZeRO).
+``fsdp`` and the dim split over ``tensor`` (None: replicated): the rank at
+``(f, t)`` keeps block f of the one and block t of the other, and so do
+the leaf's Adam moments (ZeRO). Under ``fsdp_tp`` ``wq`` ``[L, D, q_dim]``
+keeps block ``(f, t)`` of dims ``(1, 2)``.
 """
 
 from __future__ import annotations
@@ -83,42 +85,64 @@ def params_specs(params, axis_sizes: dict, rules=LLAMA_PARTITION_RULES,
 
 
 class ShardLayout:
-    """Which dim of each param leaf the mesh splits over ``fsdp``, and the
-    shard / gather of trees laid out like the params (the params, their
-    grads, Adam's ``mu`` and ``nu``). Leaves not split stay whole on every
-    rank. Under ``mesh.shards_params`` an fsdp axis of size 1 still splits
-    (into one block), so one rank runs the collectives many would."""
+    """Which dim of each param leaf the mesh splits over ``fsdp`` and over
+    ``tensor``, and the shard / gather of trees laid out like the params
+    (the params, their grads, Adam's ``mu`` and ``nu``). Leaves not split
+    stay whole on every rank. Under ``mesh.shards_params`` an fsdp axis of
+    size 1 still splits (into one block), and under ``mesh.splits_tensor``
+    a tensor axis of size 1, so one rank runs the collectives many would."""
 
     def __init__(self, params, mesh: Mesh, rules=LLAMA_PARTITION_RULES):
         sizes = {"data": mesh.shape[0], FSDP_AXIS: mesh.shape[1], TENSOR_AXIS: mesh.shape[2]}
-        keep = (FSDP_AXIS,) if mesh.shards_params else ()
+        keep = ((FSDP_AXIS,) if mesh.shards_params else ()) + (
+            (TENSOR_AXIS,) if mesh.splits_tensor else ())
         self.mesh = mesh
         self.specs = params_specs(params, sizes, rules, keep)
         self.dims = {p: (s.index(FSDP_AXIS) if FSDP_AXIS in s else None)
                      for p, s in self.specs.items()}
-        self.n = mesh.size(FSDP_AXIS)
-        self.index = mesh.index(FSDP_AXIS)
+        self.tdims = {p: (s.index(TENSOR_AXIS) if TENSOR_AXIS in s else None)
+                      for p, s in self.specs.items()}
+        self.n, self.index = mesh.size(FSDP_AXIS), mesh.index(FSDP_AXIS)
+        self.nt, self.tindex = mesh.size(TENSOR_AXIS), mesh.index(TENSOR_AXIS)
 
     @property
     def sharded(self) -> frozenset:
+        """The leaves split over ``fsdp``."""
         return frozenset(p for p, d in self.dims.items() if d is not None)
 
+    @property
+    def tensor_sharded(self) -> frozenset:
+        """The leaves split over ``tensor``."""
+        return frozenset(p for p, d in self.tdims.items() if d is not None)
+
     def shard_leaf(self, path: str, full: torch.Tensor) -> torch.Tensor:
-        d = self.dims.get(path)
-        if d is None:
+        d, t = self.dims.get(path), self.tdims.get(path)
+        if d is None and t is None:
             return full
-        b = full.shape[d] // self.n
-        return full.narrow(d, self.index * b, b).clone()
+        for dim, n, i in ((d, self.n, self.index), (t, self.nt, self.tindex)):
+            if dim is not None:
+                b = full.shape[dim] // n
+                full = full.narrow(dim, i * b, b)
+        return full.clone()
 
     def shard(self, tree):
         """This rank's shards of a full tree laid out like the params."""
         return map_paths(self.shard_leaf, tree)
 
-    def gather_leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
+    def gather_fsdp_leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
+        """The leaf's tensor block from the fsdp group's shards."""
         d = self.dims.get(path)
         if d is None:
             return local
         return collectives.all_gather(local, d, self.mesh.group(FSDP_AXIS))
+
+    def gather_leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf: over ``fsdp``, then over ``tensor``."""
+        full = self.gather_fsdp_leaf(path, local)
+        t = self.tdims.get(path)
+        if t is None:
+            return full
+        return collectives.all_gather(full, t, self.mesh.group(TENSOR_AXIS))
 
     def gather(self, tree, to_cpu: bool = False, keep: bool = True):
         """The full tree from every rank's shards (a collective: every rank

@@ -33,7 +33,7 @@ from tts_max_tpu_torch.core.config import CodecTrainingConfig
 from tts_max_tpu_torch.models.codec import discriminator as disc
 from tts_max_tpu_torch.models.codec import losses, vocos
 from tts_max_tpu_torch.parallel import collectives
-from tts_max_tpu_torch.parallel.mesh import BATCH, check_no_tensor_axis
+from tts_max_tpu_torch.parallel.mesh import BATCH
 from tts_max_tpu_torch.parallel.sharding import map_paths
 from tts_max_tpu_torch.training import optim
 
@@ -172,10 +172,9 @@ def create_gan_optimizers(cfg: CodecTrainingConfig, betas=(0.9, 0.95),
 
 def make_gan_step(vocos_cfg, mpd_cfg, msd_cfg, cfg, gen_frozen, gen_tx, disc_tx, mesh=None):
     """The step with its static arguments bound; with a ``parallel.mesh.Mesh``
-    the data-parallel step over its (data, fsdp) ranks (a tensor axis
-    raises: ROADMAP.md queue 1 item 4b)."""
-    if mesh is not None:
-        check_no_tensor_axis(mesh.shape, "GAN training")
+    the data-parallel step over its (data, fsdp) ranks. Under a tensor axis
+    the params stay whole, as in JAX: the tensor peers of a rank hold the
+    same rows and run the same step (its batch group excludes them)."""
     return functools.partial(gan_train_step, gen_frozen=gen_frozen, vocos_cfg=vocos_cfg,
                              mpd_cfg=mpd_cfg, msd_cfg=msd_cfg, cfg=cfg, gen_tx=gen_tx,
                              disc_tx=disc_tx, group=mesh.group(BATCH) if mesh else None)

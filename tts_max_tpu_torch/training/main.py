@@ -18,11 +18,12 @@ Under a launcher it trains over ``torch.distributed``, one process a card
 the JAX package the mesh comes from ``training.strategy`` and the world
 size (``parallel/mesh.mesh_for_strategy``; ``training.mesh`` is not read):
 ``dp``/``ddp`` replicate the params, ``fsdp``/``deepspeed`` shard them and
-Adam's moments; ``batch_size`` is the global batch, which must divide by
-data x fsdp; each rank loads its rows. Rank 0 writes the config, the
-checkpoints, the metrics and the final model. Tensor parallelism (``tp``
-or ``fsdp_tp`` over more than one rank) is ROADMAP.md queue 1 item 4b and
-raises before the rendezvous.
+Adam's moments, ``tp`` splits them over ``tensor`` (``(1, 1, n)``) and
+``fsdp_tp`` over both (``(-1, n/2, 2)``); ``batch_size`` is the global
+batch, which must divide by data x fsdp; each rank loads its rows, which
+its tensor peers share. Rank 0 writes the config, the checkpoints, the
+metrics and the final model; a checkpoint holds whole leaves, so a run
+resumes under any strategy and world size.
 
 Quality validation (``checkpointing.validation_type`` "random_phrases" or
 "prompt_continuation", with ``--codec_decoder_checkpoint`` and
@@ -117,10 +118,9 @@ def world_size_to_come() -> int:
 
 def check_mesh(config: ExperimentConfig, world: int) -> tuple[int, int, int]:
     """The strategy's mesh over ``world`` ranks, refused before any
-    rendezvous where it cannot run: JAX's shape errors, a tensor axis (not
-    ported), or a global batch that data x fsdp does not divide."""
+    rendezvous where it cannot run: JAX's shape errors, or a global batch
+    that data x fsdp does not divide."""
     shape = pmesh.mesh_for_strategy(config.training.strategy, world)
-    pmesh.check_no_tensor_axis(shape)
     if config.training.batch_size % (shape[0] * shape[1]):
         raise ValueError(
             f"batch_size {config.training.batch_size} must be divisible by the "

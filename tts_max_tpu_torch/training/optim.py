@@ -72,22 +72,39 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def global_norm(grads, group=None, sharded=frozenset()) -> torch.Tensor:
+def global_norm(grads, group=None, sharded=frozenset(), tensor_group=None,
+                tensor_sharded=frozenset()) -> torch.Tensor:
     """sqrt of the sum of every element's square, in fp32 (0-d tensor).
 
     With ``group``, the leaves whose paths are in ``sharded`` hold this
-    rank's shard of a leaf split over the group: their squares are summed
-    here, then over the group's ranks (one all-reduce), before the whole
-    leaves' (the same on every rank) are added and the root taken."""
+    rank's shard of a leaf split over the group (fsdp); with
+    ``tensor_group``, those in ``tensor_sharded`` its block of a leaf split
+    over that group (a leaf may be split over both). Their squares are
+    summed here, then over the groups (one all-reduce a group), before the
+    leaves split over neither (the same on every rank, counted once) are
+    added and the root taken."""
     items = list(tree_items(grads))
-    whole = sum((g.float().square().sum() for p, g in items if p not in sharded),
-                torch.zeros((), dtype=torch.float32, device=items[0][1].device))
-    if group is None or not sharded:
+    sharded = sharded if group is not None else frozenset()
+    tensor_sharded = tensor_sharded if tensor_group is not None else frozenset()
+    zero = torch.zeros((), dtype=torch.float32, device=items[0][1].device)
+
+    def part(f, t):
+        return sum((g.float().square().sum() for p, g in items
+                    if (p in sharded) == f and (p in tensor_sharded) == t), zero)
+
+    whole = part(False, False)
+    if not sharded and not tensor_sharded:
         return torch.sqrt(whole)
     from tts_max_tpu_torch.parallel.collectives import all_reduce_sum
 
-    parts = sum(g.float().square().sum() for p, g in items if p in sharded)
-    return torch.sqrt(all_reduce_sum(parts, group) + whole)
+    f_only, both, t_only = part(True, False), part(True, True), part(False, True)
+    if sharded:
+        f_only, both = all_reduce_sum(torch.stack([f_only, both]), group).unbind(0)
+    if tensor_sharded:
+        t_only = all_reduce_sum(t_only + both, tensor_group)
+    else:
+        t_only = t_only + both
+    return torch.sqrt(whole + f_only + t_only)
 
 
 class AdamW:

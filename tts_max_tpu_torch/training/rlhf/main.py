@@ -4,7 +4,7 @@
         --dataset_dir DS [--model_dir HF_DIR | --architecture llama-tiny] \\
         [--codec_decoder CKPT] [--whisper_dir DIR] [--dnsmos_dir DIR] \\
         [--wavlm_dir DIR] [--ecapa_checkpoint PT] [--rollout_via_engine] \\
-        [--total_steps N] [--device cuda|cpu]
+        [--sampler_devices N] [--total_steps N] [--device cuda|cpu]
 
 Builds the RLHF dataset (this sample's audio prompt and the next sample's
 transcript), the reward functions with their backends (Whisper for WER,
@@ -19,8 +19,20 @@ extended with the speech vocabulary, fp32 weights under the config's
 compute dtype, remat on) or a named architecture's (the byte tokenizer, bf16
 weights from the port's seeded ``init_params``, remat on). Without
 ``--codec_decoder`` the rewards decode with a tiny random Vocos (smoke
-mode). ``--sampler_devices`` above 0 (a trainer sub-mesh and a sampler
-sub-mesh) needs more than one device and raises: ROADMAP.md queue 1 item 4b.
+mode).
+
+``--sampler_devices N`` splits the ranks of a launcher's group (torchrun,
+one process a card; gloo with ``--device cpu``) into RLHF's trainer and
+sampler (``topology.TrainerSamplerTopology``): the last N ranks make the
+rollouts tensor-parallel, the rest train on an FSDP mesh, and the weights
+are pushed between rounds:
+
+    torchrun --nproc_per_node 8 -m tts_max_tpu_torch.training.rlhf.main \\
+        --config_path rlhf.json --dataset_dir DS --sampler_devices 4
+
+A world of N ranks or fewer (one process without a launcher included)
+raises JAX's ``ValueError``. Rank 0 writes the checkpoints, the config and
+the metrics.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from tts_max_tpu_torch.data.normalization import create as create_normalizer
 from tts_max_tpu_torch.device import resolve_device
 from tts_max_tpu_torch.models import hf_import, llama
 from tts_max_tpu_torch.models.codec import api, vocos
+from tts_max_tpu_torch.parallel import mesh as pmesh
 from tts_max_tpu_torch.training.checkpointing import CheckpointManager, save_config
 from tts_max_tpu_torch.training.rlhf.dataset import TtsRLHFDataset
 from tts_max_tpu_torch.training.rlhf.grpo import GRPOTrainer
@@ -115,12 +128,23 @@ def build_backends(args, device) -> dict:
 
 
 def run_training(config: ExperimentConfig, args) -> RLHFResult:
-    setup_logging(0)
+    env = (pmesh.initialize_distributed(args.device) if args.sampler_devices > 0
+           else pmesh.EnvironmentContext())
+    try:
+        return _train(config, args, env)
+    finally:
+        pmesh.destroy_distributed(env)
+
+
+def _train(config: ExperimentConfig, args, env) -> RLHFResult:
+    setup_logging(env.global_rank)
+    topology = None
     if args.sampler_devices > 0:
-        raise NotImplementedError(
-            f"--sampler_devices {args.sampler_devices}: a trainer sub-mesh and a sampler "
-            "sub-mesh need more than one device; the trainer/sampler topology is "
-            "ROADMAP.md queue 1 item 4b")
+        from tts_max_tpu_torch.training.rlhf.topology import TrainerSamplerTopology
+
+        topology = TrainerSamplerTopology.create(n_sampler=args.sampler_devices)
+        log.info("Trainer/sampler topology: trainer ranks %s, sampler ranks %s",
+                 topology.trainer_ranks, topology.sampler_ranks)
     device = resolve_device(args.device)
     tokenizer, params, model_cfg = build_policy(args, config, device)
     sv = speech_vocab(tokenizer)
@@ -158,17 +182,20 @@ def run_training(config: ExperimentConfig, args) -> RLHFResult:
         params, model_cfg, tokenizer, sv, reward_funcs, config.rlhf,
         learning_rate=config.training.learning_rate,
         seed=config.training.seed,
+        topology=topology,
         rollout_via_engine=args.rollout_via_engine,
     )
     os.makedirs(config.output_dir, exist_ok=True)
-    save_config(config.output_dir, config)
+    if env.is_main:
+        save_config(config.output_dir, config)
     mgr = CheckpointManager(os.path.join(config.output_dir, "checkpoints"),
-                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints)
+                            keep_last_n=config.checkpointing.keep_only_last_n_checkpoints,
+                            layout=trainer.layout, is_main=env.is_main)
 
     prompts_per_step = max(1, config.training.batch_size)
     rng = np.random.default_rng(config.training.seed)
     stats_acc = Statistics()
-    metrics = MetricsLogger(config.output_dir)
+    metrics = MetricsLogger(config.output_dir, is_main=env.is_main)
     history = []
     for _ in range(args.total_steps):
         idxs = rng.integers(0, len(dataset), prompts_per_step)
@@ -210,8 +237,9 @@ def main(argv=None) -> RLHFResult:
                         help="UniSpeech ECAPA_TDNN_SMALL torch checkpoint (with the trained "
                              "WavLM layer weights) for the similarity reward.")
     parser.add_argument("--sampler_devices", type=int, default=0,
-                        help="A separate sampler sub-mesh of N devices; not ported (needs "
-                             "more than one device), 0 = one device time-multiplexed.")
+                        help="The last N ranks of the launcher's group sample on a "
+                             "tensor-parallel mesh, the rest train; 0 = one device "
+                             "time-multiplexed.")
     parser.add_argument("--rollout_via_engine", action="store_true",
                         help="Generate rollouts through the continuous-batching serving "
                              "engine instead of generate.")

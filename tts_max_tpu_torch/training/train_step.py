@@ -3,8 +3,9 @@
 One call runs every gradient-accumulation micro-step, global-norm clipping
 with a non-finite guard, and the AdamW update. ``train_step`` runs on one
 device; ``make_train_step(mesh, ...)`` builds the same step over a
-``(data, fsdp, 1)`` mesh of ``torch.distributed`` ranks, each holding its
-rows of the global batch (``ShardedTrainStep``).
+``(data, fsdp, tensor)`` mesh of ``torch.distributed`` ranks, each holding
+its rows of the global batch, which its tensor peers share
+(``ShardedTrainStep``).
 
 The non-finite guard is JAX's: a non-finite global grad norm zeroes the
 grads and the updates, so the parameters stay exactly unchanged while the
@@ -24,14 +25,9 @@ from torch.utils.checkpoint import checkpoint
 from tts_max_tpu_torch.core.constants import LOSS_IGNORE_TOKEN_ID
 from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.parallel import collectives
-from tts_max_tpu_torch.parallel.mesh import (
-    BATCH,
-    DATA_AXIS,
-    FSDP_AXIS,
-    Mesh,
-    check_no_tensor_axis,
-)
+from tts_max_tpu_torch.parallel.mesh import BATCH, DATA_AXIS, FSDP_AXIS, TENSOR_AXIS, Mesh
 from tts_max_tpu_torch.parallel.sharding import ShardLayout, map_paths
+from tts_max_tpu_torch.parallel.tensor import TensorParallel
 from tts_max_tpu_torch.training.optim import AdamW, apply_updates, global_norm, tree_map
 
 
@@ -61,15 +57,6 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor):
     return s / n.clamp_min(1), n
 
 
-def _chunk_nll(hc, tc, params, cfg):
-    logits = llama._logits(hc, params, cfg)  # fp32 [B, C, V]
-    valid = tc != LOSS_IGNORE_TOKEN_ID
-    safe = torch.where(valid, tc, 0)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
-    return torch.where(valid, lse - tgt, 0.0).sum(), valid.sum()
-
-
 def chunked_causal_lm_loss(params, cfg: llama.LlamaConfig, hidden: torch.Tensor,
                            labels: torch.Tensor, chunk_size: int):
     """Blockwise cross entropy over the 193856-token head.
@@ -83,15 +70,63 @@ def chunked_causal_lm_loss(params, cfg: llama.LlamaConfig, hidden: torch.Tensor,
     return nll_sum / n_valid.clamp_min(1), n_valid
 
 
-def _chunked_nll_sum(params, cfg, hidden, labels, chunk_size):
+class _VocabParallelNLL(torch.autograd.Function):
+    """``logsumexp - target logit`` of logits whose vocab is split over a
+    group, from this rank's block [..., V/t] (its first id ``lo``): the
+    max, the sum of exponentials and the target logit are each reduced
+    over the group (three all-reduces), so no rank holds a whole row. The
+    backward is the block's ``softmax - onehot(target)``, with no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, group):
+        n = logits.shape[-1]
+        m = collectives.all_reduce_max(logits.max(dim=-1).values, group)
+        e = torch.exp(logits - m[..., None])
+        s = collectives.all_reduce_sum(e.sum(dim=-1), group)
+        local = targets - lo
+        inside = (local >= 0) & (local < n)
+        idx = torch.where(inside, local, 0)
+        tgt = torch.where(inside, torch.gather(logits, -1, idx[..., None])[..., 0], 0.0)
+        tgt = collectives.all_reduce_sum(tgt, group)
+        ctx.save_for_backward(e.div_(s[..., None]), idx, inside)
+        return torch.log(s) + m - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, inside = ctx.saved_tensors
+        grad = p * g[..., None]
+        grad.scatter_add_(-1, idx[..., None], -(g * inside)[..., None])
+        return grad, None, None, None
+
+
+def token_nll(hc, tc, params, cfg, tp=None):
+    """``logsumexp - target logit`` [B, C] of hidden states ``hc`` [B, C, D]
+    and targets ``tc`` [B, C] (in range), vocab-parallel under a ``tp``
+    that splits the head."""
+    if tp is not None and tp.head:
+        logits, lo = llama.local_logits(hc, params, cfg, tp)
+        return _VocabParallelNLL.apply(logits, tc, lo, tp.group)
+    logits = llama._logits(hc, params, cfg, tp=tp)  # fp32 [B, C, V]
+    return (torch.logsumexp(logits, dim=-1)
+            - torch.gather(logits, -1, tc[..., None])[..., 0])
+
+
+def _chunk_nll(hc, tc, params, cfg, tp=None):
+    valid = tc != LOSS_IGNORE_TOKEN_ID
+    nll = token_nll(hc, torch.where(valid, tc, 0), params, cfg, tp)
+    return torch.where(valid, nll, 0.0).sum(), valid.sum()
+
+
+def _chunked_nll_sum(params, cfg, hidden, labels, chunk_size, tp=None):
     h = hidden[:, :-1]
     t = labels[:, 1:].long()
     T = h.shape[1]
-    C = min(chunk_size, T)
+    C = min(chunk_size, T) if chunk_size > 0 else T
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     n_valid = torch.zeros((), dtype=torch.int64, device=h.device)
     for c0 in range(0, T, C):
-        s, k = checkpoint(_chunk_nll, h[:, c0:c0 + C], t[:, c0:c0 + C], params, cfg,
+        s, k = checkpoint(_chunk_nll, h[:, c0:c0 + C], t[:, c0:c0 + C], params, cfg, tp,
                           use_reentrant=False)
         nll_sum = nll_sum + s
         n_valid = n_valid + k
@@ -99,12 +134,14 @@ def _chunked_nll_sum(params, cfg, hidden, labels, chunk_size):
 
 
 def nll_sum(params, cfg: llama.LlamaConfig, batch, loss_chunk_size: int = 0,
-            gather_layer=None):
+            gather_layer=None, tp=None):
     """(the summed cross entropy of a micro-batch, its valid tokens): the
-    loss before its division by the token count."""
-    hidden = llama.forward_hidden(params, cfg, batch["input_ids"], gather_layer)
-    if loss_chunk_size > 0:
-        return _chunked_nll_sum(params, cfg, hidden, batch["labels"], loss_chunk_size)
+    loss before its division by the token count. Under ``tp`` the loss is
+    always chunked (one chunk without ``loss_chunk_size``), vocab-parallel
+    where the head is split."""
+    hidden = llama.forward_hidden(params, cfg, batch["input_ids"], gather_layer, tp)
+    if loss_chunk_size > 0 or tp is not None:
+        return _chunked_nll_sum(params, cfg, hidden, batch["labels"], loss_chunk_size, tp)
     return _nll_sum(llama._logits(hidden, params, cfg), batch["labels"])
 
 
@@ -213,7 +250,7 @@ class _GatherShard(torch.autograd.Function):
 
 
 class ShardedTrainStep:
-    """The train step over a ``(data, fsdp, 1)`` mesh (JAX's
+    """The train step over a ``(data, fsdp, tensor)`` mesh (JAX's
     ``make_train_step``), with ``train_step``'s signature and metrics.
 
     Each rank steps on its rows of the global batch, ``[A, B_local, L]``;
@@ -233,16 +270,29 @@ class ShardedTrainStep:
     (``dp``): every leaf is whole. The clip and the non-finite guard read
     the norm summed over the ranks, so they agree on every rank; AdamW is
     elementwise and runs on the shards as they are.
+
+    Tensor parallelism (``mesh.splits_tensor``): a rank also keeps only its
+    tensor block of the leaves the rules split over ``tensor`` (inside its
+    fsdp shard under ``fsdp_tp``), and the layers run on those blocks
+    (``parallel/tensor.py``) once the fsdp gathers have made them whole
+    along ``fsdp``. The loss is the vocab-parallel cross entropy, chunked.
+    Tensor peers see the same rows: the batch group, which sums the token
+    counts, the losses and the grads, holds one rank of each tensor
+    coordinate. A leaf the layers do not split (the norms) gets the same
+    grad on every tensor peer, since each column-parallel entry sums its
+    input's grad over the peers.
     """
 
     def __init__(self, mesh: Mesh, cfg: llama.LlamaConfig, tx: AdamW, params,
                  gradient_clip_value: float = 1.0, loss_chunk_size: int = 0):
-        check_no_tensor_axis(mesh.shape)
         self.cfg, self.tx = cfg, tx
         self.clip, self.chunk = gradient_clip_value, loss_chunk_size
         self.layout = ShardLayout(params, mesh)
+        self.tp = TensorParallel.create(cfg, mesh, params)
         self.sharded = self.layout.sharded
+        self.tensor_sharded = self.layout.tensor_sharded
         self.fsdp_group, self.batch_group = mesh.group(FSDP_AXIS), mesh.group(BATCH)
+        self.tensor_group = mesh.group(TENSOR_AXIS) if self.tp is not None else None
         self.data_group = (mesh.group(DATA_AXIS)
                            if mesh.size(DATA_AXIS) > 1 and self.sharded else None)
         # a layer's leaves, keyed under "layers/", lose the stacked dim
@@ -261,18 +311,20 @@ class ShardedTrainStep:
 
     def _with_full(self, params):
         """``params`` with the once-a-step leaves (embedding, head) gathered."""
-        return map_paths(lambda p, x: self.layout.gather_leaf(p, x) if p in self.once else x,
-                         params)
+        return map_paths(lambda p, x: (self.layout.gather_fsdp_leaf(p, x) if p in self.once
+                                       else x), params)
 
-    def __call__(self, params, opt_state, batch):
-        batch = to_device_batch(batch, llama.params_device(params))
-        ids, labels = batch["input_ids"], batch["labels"]
-        accum = ids.shape[0]
-        n_global = collectives.all_reduce_sum(
-            (labels[:, :, 1:] != LOSS_IGNORE_TOKEN_ID).sum(dim=(1, 2)), self.batch_group)
+    def reduced_grads(self, params, micro_terms):
+        """Backpropagate each micro-step's term (``fn(live params) -> (term,
+        aux)``, run on the params with the once-a-step leaves gathered) and
+        reduce the grads over the mesh: their sum over micro-steps (fp32
+        when there are several) divided by their number, each leaf in the
+        dtype the one-device step gives. Returns (grads laid out like
+        ``params``, [(term, aux)] detached)."""
+        accum = len(micro_terms)
         gathered = self._with_full(params)
-        sums, terms = {}, []
-        for a in range(accum):
+        sums, outs = {}, []
+        for fn in micro_terms:
             leaves = {}
 
             def track(p, x):
@@ -281,17 +333,13 @@ class ShardedTrainStep:
 
             live = map_paths(track, gathered)
             with torch.enable_grad():
-                s, _ = nll_sum(live, self.cfg, {"input_ids": ids[a], "labels": labels[a]},
-                               self.chunk, self._gather_layer)
-                term = s / n_global[a].clamp_min(1)
+                term, aux = fn(live)
                 g = torch.autograd.grad(term, list(leaves.values()))
-            terms.append(term.detach())
+            outs.append((term.detach(), aux))
             for p, x in zip(leaves, g):
                 x = x.float() if accum > 1 else x
                 sums[p] = x if p not in sums else sums[p] + x
         del gathered
-        losses = collectives.all_reduce_sum(torch.stack(terms), self.batch_group)
-        loss = losses.sum() / accum
         grads = {p: (x / accum if accum > 1 else x) for p, x in sums.items()}
         for p in self.once:
             grads[p] = collectives.reduce_scatter_sum(grads[p].float(), self.layout.dims[p],
@@ -304,10 +352,34 @@ class ShardedTrainStep:
         grads.update(zip(whole, collectives.all_reduce_flat([grads[p] for p in whole],
                                                             self.batch_group)))
         # the dtypes the one-device step gives: the leaf's, fp32 under accumulation
-        grads = map_paths(lambda p, x: grads[p].to(torch.float32 if accum > 1 else x.dtype),
-                          params)
+        return map_paths(lambda p, x: grads[p].to(torch.float32 if accum > 1 else x.dtype),
+                         params), outs
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The grads' global norm over the mesh, the same on every rank."""
+        return global_norm(grads, self.fsdp_group, self.sharded, self.tensor_group,
+                           self.tensor_sharded)
+
+    def __call__(self, params, opt_state, batch):
+        batch = to_device_batch(batch, llama.params_device(params))
+        ids, labels = batch["input_ids"], batch["labels"]
+        accum = ids.shape[0]
+        n_global = collectives.all_reduce_sum(
+            (labels[:, :, 1:] != LOSS_IGNORE_TOKEN_ID).sum(dim=(1, 2)), self.batch_group)
+
+        def micro(a):
+            def fn(live):
+                s, _ = nll_sum(live, self.cfg, {"input_ids": ids[a], "labels": labels[a]},
+                               self.chunk, self._gather_layer, self.tp)
+                return s / n_global[a].clamp_min(1), None
+            return fn
+
+        grads, outs = self.reduced_grads(params, [micro(a) for a in range(accum)])
+        losses = collectives.all_reduce_sum(torch.stack([t for t, _ in outs]),
+                                            self.batch_group)
+        loss = losses.sum() / accum
         with torch.no_grad():
-            gnorm = global_norm(grads, self.fsdp_group, self.sharded)
+            gnorm = self.global_norm(grads)
             new_params, new_state, finite = _clip_and_update(params, opt_state, grads, gnorm,
                                                              self.tx, self.clip)
         metrics = StepMetrics(loss=float(loss), grad_norm=float(gnorm),
@@ -321,7 +393,7 @@ class ShardedTrainStep:
         counts, the same on every rank."""
         batch = to_device_batch(batch, llama.params_device(params))
         s, n = nll_sum(self._with_full(params), self.cfg, batch, self.chunk,
-                       self._gather_layer)
+                       self._gather_layer, self.tp)
         v = collectives.all_reduce_sum(torch.stack([s.float(), n.float()]), self.batch_group)
         return float(v[0] / v[1].clamp_min(1)), int(v[1])
 
