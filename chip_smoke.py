@@ -108,6 +108,17 @@ after the SFT runs, t1, g1 and e-tp. RLHF's trainer/sampler topology
 (``training/rlhf/topology.py``) needs two ranks on distinct cards, which
 this one-card machine does not have: it is not run here (the gloo tests
 hold it to the JAX package).
+The port's C++ host library (``tts_max_tpu_torch/native``: the byte
+tokenizer's encode, the WER reward's edit distance) is built with this
+machine's g++ before anything encodes; the synthesis path, the engines (each
+request tokenized as a server does) and the SFT run must make at least one
+native encode a request or fetched sample, and r1 one native edit distance
+for each WER reward with a reference. Last, host_native holds the native
+encode against ``encode_plain`` on every text the paths encoded and on
+seeded random strings, and the native edit distance against
+``edit_distance_plain`` on r1's pairs and seeded sequences, and times both
+on the host; its JSON line (``{"host_native": ...}``, with the card and
+the host CPU) comes before the kernels' summary.
 The next-to-last lines are a JSON summary of the kernels and the card's
 name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the run ends with a nonzero exit and no result
@@ -1460,6 +1471,7 @@ def run_training(counters, validation) -> dict:
     ``TRAIN_DIR`` for c1."""
     import shutil
 
+    from tts_max_tpu_torch import native
     from tts_max_tpu_torch.inference import quality
     from tts_max_tpu_torch.models import llama
     from tts_max_tpu_torch.parallel import collectives
@@ -1483,14 +1495,18 @@ def run_training(counters, validation) -> dict:
 
     _zero(counters)
     collectives.reset_counts()
+    native.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with nccl_world_of_one():
+    with _FetchCounter() as fetched, nccl_world_of_one():
         res = train_main.main(["--config_path", path, "--total_steps", str(TRAIN_STEPS)])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     got = _counts(counters)
     calls = collectives.counts()
+    if fetched.n < TRAIN_STEPS * cfg["training"]["batch_size"]:
+        raise AssertionError(f"SFT fetched {fetched.n} samples in {TRAIN_STEPS} steps")
+    _check_host_counts("SFT", encodes_at_least=fetched.n)
     losses = [m.loss for _, m, _, _ in res.steps]
     if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()
             and losses[-1] < losses[0]):
@@ -2106,6 +2122,7 @@ def run_main_path(tok, sv, counters):
     """Three synthesis requests (two of them encode their prompt wav) and an
     int8-KV generate; returns the model, its parts and the launch counts of
     this path."""
+    from tts_max_tpu_torch import native
     from tts_max_tpu_torch.data import normalization
     from tts_max_tpu_torch.inference.generate import generate
     from tts_max_tpu_torch.inference.synthesize import InferenceSettings
@@ -2115,6 +2132,7 @@ def run_main_path(tok, sv, counters):
     settings = InferenceSettings(max_tokens=256)
 
     _zero(counters)
+    native.reset_counts()
     steps = 0
     prefills = 0
     for request in REQUESTS:
@@ -2175,6 +2193,7 @@ def run_main_path(tok, sv, counters):
         f"{encoded} prompts encoded)")
     if got != want:
         raise AssertionError(f"launch counts {got} != expected {want}")
+    _check_host_counts("synthesis", encodes_at_least=prefills)
 
     for pid, sec in PROMPT_SECONDS.items():
         split = encode_split(codec, prompt_wavs()[pid])
@@ -2352,17 +2371,23 @@ def drive_engine(label, eng, reqs, decoder, sv, counters, decode_kernel: str,
 
 
 def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
-    """e1-e6 at full width; returns the launch counts summed over them."""
+    """e1-e6 at full width; returns the launch counts summed over them.
+    Each request's prompt is tokenized when its request is made, as a
+    server does (the native encodes must cover every request)."""
+    from tts_max_tpu_torch import native
     from tts_max_tpu_torch.data import normalization
     from tts_max_tpu_torch.inference.engine import InferenceEngine, PagedInferenceEngine
     from tts_max_tpu_torch.ops.sampling import SamplingParams
 
     normalizer = normalization.create()
-    prompts = {(kind, i): engine_prompt(tok, normalizer, encoder, kind, i)
-               for kind in ("desc", "p5s", "p22s") for i in range(4)}
+    native.reset_counts()
+    n_requests = 0
 
     def reqs(order, budgets):
-        return [dict(ids=prompts[key][0], codes=prompts[key][1], budget=n, seed=100 + j)
+        nonlocal n_requests
+        n_requests += len(order)
+        return [dict(zip(("ids", "codes"), engine_prompt(tok, normalizer, encoder, *key)),
+                     budget=n, seed=100 + j)
                 for j, (key, n) in enumerate(zip(order, budgets))]
 
     window = sv.generation_window()
@@ -2423,9 +2448,9 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
     # requests without prefill-ahead
     parked_kw = dict(common, steps_per_dispatch=32)
     order = [("desc", i) for i in range(4)] + [("p5s", i) for i in range(4)]
-    e5 = reqs(order + order + [("p22s", 0), ("p22s", 1)], [128] * 18)
     runs = {}
     for ahead in (True, False):
+        e5 = reqs(order + order + [("p22s", 0), ("p22s", 1)], [128] * 18)
         eng = InferenceEngine(params, cfg, prefill_ahead=ahead, **parked_kw)
         runs[ahead] = {}
         add(drive_engine(f"e5 contiguous bf16, prefill_ahead={ahead}, 18 requests", eng, e5,
@@ -2470,6 +2495,7 @@ def run_engines(tok, sv, params, cfg, encoder, decoder, counters) -> dict:
         raise AssertionError(f"e6: {free} free + evictable blocks of {eng.num_blocks - 1}")
     log(f"  e6: {eng._suffix_admissions} suffix admissions, blocks balanced ({free} free + "
         f"evictable of {eng.num_blocks - 1})")
+    _check_host_counts("engines", encodes_at_least=n_requests)
     return totals
 
 
@@ -4082,7 +4108,7 @@ class _GRPORecorder:
         self.grpo.make_grpo_step = self.real_make
 
 
-def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
+def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters, rec: _HostRecorder) -> dict:
     """r1: ``training.rlhf.main`` on ``example/configs/rlhf.json`` as users
     run it (``write_rlhf_config``'s changes, R1_STEPS steps) from c1's
     Llama-3.2-1B HF dir (the SFT's final model, with the fixture tokenizer
@@ -4096,7 +4122,9 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
     fp32 weights with remat, over half of them moved by each step; a
     checkpoint at step 2; the launches A = 3 x layers a step (the
     rollout's prefill, the update's forward and its remat recompute), A' =
-    layers a step, B = layers a decode step. Then r1e: one step through the contiguous engine
+    layers a step, B = layers a decode step; a native edit distance for each
+    WER reward whose reference has a word (``rec`` records them). Then r1e:
+    one step through the contiguous engine
     (``--rollout_via_engine``, ``max_completion_length`` 128,
     ``constrain_to_speech`` on so that the engine keeps a head window; no
     Whisper dir, so its WER reward takes the no-backend score: r1 holds
@@ -4106,6 +4134,7 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
     decode step. Returns the launch counts of both."""
     import shutil
 
+    from tts_max_tpu_torch import native
     from tts_max_tpu_torch.models import hf_import, llama
     from tts_max_tpu_torch.training.optim import tree_leaves
     from tts_max_tpu_torch.training.rlhf import main as rlhf_main
@@ -4126,16 +4155,22 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
     path, cfg = write_rlhf_config(os.path.join(R1_DIR, "out"))
     G = cfg["rlhf"]["num_generations"]
     _zero(counters)
+    native.reset_counts()
+    n_wer = len(rec.wer_pairs)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with _GRPORecorder(os.path.join(R1_DIR, "trace"), traced=2) as rec:
+    with _GRPORecorder(os.path.join(R1_DIR, "trace"), traced=2) as grpo_rec:
         res = rlhf_main.main(["--config_path", path, "--dataset_dir", ds, "--model_dir",
                               hf_dir, "--codec_decoder", dec_path, "--total_steps",
                               str(R1_STEPS), "--device", "cuda", *backend_args])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     got = _counts(counters)
-    steps = [s["stats"] for s in rec.steps]
+    scored = rec.wer_scored(rec.label)
+    log(f"  r1: {len(rec.wer_pairs) - n_wer} WER rewards reached a transcript, {scored} of "
+        f"them with a reference that has a word")
+    _check_host_counts("r1", encodes_at_least=0, levenshtein=scored)
+    steps = [s["stats"] for s in grpo_rec.steps]
     decode = sum(s["decode_steps"] for s in steps)
     _check_counts("r1 GRPO RLHF", got, _want(
         counters, flash_attention=3 * L * R1_STEPS, flash_attention_bwd=L * R1_STEPS,
@@ -4147,16 +4182,17 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
     if calls != {k: (n, n) for k, n in want_calls.items()}:
         raise AssertionError(f"r1: backend (calls, completed) {calls}, expected "
                              f"{want_calls} each with every call completed")
-    for i, s in enumerate(rec.steps):
+    for i, s in enumerate(grpo_rec.steps):
         st = s["stats"]
         if not (np.isfinite(s["adv"]).all() and np.abs(s["adv"]).max() > 0
                 and np.isfinite([st["loss"], st["mean_logp"], st["grad_norm"]]).all()
                 and st["grad_norm"] > 0):
             raise AssertionError(f"r1 step {i + 1}: advantages {s['adv']}, stats {st}")
-    if not (rec.steps[1]["rollout"] == rec.steps[0]["after"] != rec.steps[0]["before"]):
+    r1s = grpo_rec.steps
+    if not (r1s[1]["rollout"] == r1s[0]["after"] != r1s[0]["before"]):
         raise AssertionError("r1: round 2 did not sample from the trainer's updated tensors")
     dtypes = {t.dtype for t in tree_leaves(res.trainer.params)}
-    moved = [s["moved"] for s in rec.steps]
+    moved = [s["moved"] for s in grpo_rec.steps]
     # fp32 master weights take rlhf.json's 1e-6 step almost everywhere (bf16
     # weights would round most of it away)
     if dtypes != {torch.float32} or not res.trainer.cfg.remat or min(moved) <= 0.5:
@@ -4174,7 +4210,7 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
         f"update at {trainer.last_batch.tokens.shape[0]} x {trainer.last_batch.tokens.shape[1]}"
         f" tokens, fp32 weights, remat): wall {wall:.1f} s, "
         f"peak torch.cuda.max_memory_allocated {peak:.2f} GiB")
-    for i, s in enumerate(rec.steps):
+    for i, s in enumerate(grpo_rec.steps):
         st = s["stats"]
         rewards = {k: st[k] for k in ("WERRewardFunc", "DNSMOSRewardFunc",
                                       "SimilarityRewardFunc")}
@@ -4189,13 +4225,13 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
             + " ".join(f"{a:+.3f}" for a in s["adv"])
             + f"; loss {st['loss']:.6f}, mean logp {st['mean_logp']:.4f}, grad norm "
             f"{st['grad_norm']:.4f}; share of weights the update moved {s['moved']:.4f}")
-    busy = ("not measured (the profiler recorded no device time)" if not rec.busy_ms else
-            f"{rec.busy_ms:.2f} ms busy of its traced wall {rec.wall_ms:.2f} ms = "
-            f"{rec.busy_ms / rec.wall_ms:.4f}")
+    busy = ("not measured (the profiler recorded no device time)" if not grpo_rec.busy_ms else
+            f"{grpo_rec.busy_ms:.2f} ms busy of its traced wall {grpo_rec.wall_ms:.2f} ms = "
+            f"{grpo_rec.busy_ms / grpo_rec.wall_ms:.4f}")
     log(f"  r1 update of step 2, device-busy share (utils/profiling.trace): {busy}; "
         f"checkpoint {ckpt_gib:.2f} GiB in {res.checkpoint_seconds[0]:.2f} s; "
         f"{len(wavs)} completion wavs; backends (calls, completed) {calls}; launches {got}")
-    del res, trainer, rec
+    del res, trainer, grpo_rec
     torch.cuda.empty_cache()
 
     # r1e: one step with the rollouts through the contiguous engine (kernel C)
@@ -4234,11 +4270,201 @@ def run_rlhf(hf_dir: str, ds: str, dec_path: str, counters) -> dict:
     return {k: got[k] + got_e[k] for k in got}
 
 
+# --- host_native: the port's C++ host library -----------------------------------
+
+HOST_ALPHABET = list("<|>s_0123456789 aZ~\n") + ["é", "日", "😀", "Ω"]
+HOST_FRAGMENTS = ["<|", "|>", "<|s_", "<|s_0|>", "<|s_7|>", "<|s_65535|>", "<|s_65536|>",
+                  "<|s_007|>", "<|s_" + "0" * 31 + "1|>", "<|s_18446744073709551617|>",
+                  "<|speech_start|>", "<|eot_id|>", "<||>", "<|s_|>", "<|a|b|>"]
+HOST_COUNTS: dict = {}  # each path's native calls, checked where the path ran
+
+
+class _HostRecorder:
+    """Records, under the current phase's ``label``, every text a byte
+    tokenizer encodes (with the tokenizer), every text an HF tokenizer
+    encodes (r1's prompts, h1's samples), and every (reference, hypothesis)
+    pair of a WER or CER reward, for host_native's parity checks."""
+
+    def __init__(self):
+        self.label = "setup"
+        self.byte_texts, self.hf_texts, self.wer_pairs = [], [], []
+
+    def install(self) -> None:
+        from tts_max_tpu_torch.core import hf_tokenizer, tokenization
+        from tts_max_tpu_torch.training.rlhf import reward_utils
+
+        rec = self
+        byte_encode = tokenization.ByteTokenizer.encode
+        hf_encode = hf_tokenizer.HFTokenizer.encode
+        wer, cer = reward_utils.word_error_rate, reward_utils.char_error_rate
+
+        def record_byte(tok, text, *a, **kw):
+            rec.byte_texts.append((rec.label, tok, text))
+            return byte_encode(tok, text, *a, **kw)
+
+        def record_hf(tok, text, *a, **kw):
+            rec.hf_texts.append((rec.label, text))
+            return hf_encode(tok, text, *a, **kw)
+
+        def record_wer(ref, hyp):
+            rec.wer_pairs.append((rec.label, "wer", ref, hyp))
+            return wer(ref, hyp)
+
+        def record_cer(ref, hyp):
+            rec.wer_pairs.append((rec.label, "cer", ref, hyp))
+            return cer(ref, hyp)
+
+        self.patched = [(tokenization.ByteTokenizer, "encode", byte_encode, record_byte),
+                        (hf_tokenizer.HFTokenizer, "encode", hf_encode, record_hf),
+                        (reward_utils, "word_error_rate", wer, record_wer),
+                        (reward_utils, "char_error_rate", cer, record_cer)]
+        for owner, name, _, wrap in self.patched:
+            setattr(owner, name, wrap)
+
+    def uninstall(self) -> None:
+        for owner, name, real, _ in self.patched:
+            setattr(owner, name, real)
+
+    def wer_scored(self, label: str) -> int:
+        """The WER/CER rewards of phase ``label`` that computed an edit
+        distance (a reference with a word, or a character)."""
+        return sum(bool(r.split() if how == "wer" else r)
+                   for lbl, how, r, _ in self.wer_pairs if lbl == label)
+
+
+class _FetchCounter:
+    """Counts ``TtsFineTuningDataset.__getitem__`` calls that returned (each
+    encodes its sample's prompt once before it returns)."""
+
+    def __enter__(self):
+        from tts_max_tpu_torch.data import datasets
+
+        self.cls, self.real, self.n = datasets.TtsFineTuningDataset, \
+            datasets.TtsFineTuningDataset.__getitem__, 0
+        rec = self
+
+        def getitem(ds, idx):
+            out = rec.real(ds, idx)
+            rec.n += 1
+            return out
+
+        self.cls.__getitem__ = getitem
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__getitem__ = self.real
+
+
+def _check_host_counts(label: str, encodes_at_least: int, levenshtein: int = 0) -> None:
+    """The native calls since the last ``native.reset_counts()``: at least
+    ``encodes_at_least`` encodes, exactly ``levenshtein`` edit distances."""
+    from tts_max_tpu_torch import native
+
+    got = native.counts()
+    HOST_COUNTS[label] = dict(got, encodes_at_least=encodes_at_least)
+    log(f"  {label}: native calls {got} (encodes at least {encodes_at_least}, edit "
+        f"distances {levenshtein})")
+    if got["encode"] < encodes_at_least or got["levenshtein"] != levenshtein:
+        raise AssertionError(f"{label}: native calls {got}, expected at least "
+                             f"{encodes_at_least} encodes and {levenshtein} edit distances")
+
+
+def _median_us(fn, arg_sets, rounds: int = 50) -> float:
+    """Median over ``rounds`` of the host µs a call, each round one call on
+    each of ``arg_sets``."""
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter_ns()
+        for args in arg_sets:
+            fn(*args)
+        per.append((time.perf_counter_ns() - t0) / 1e3 / len(arg_sets))
+    return float(np.median(per))
+
+
+def host_cpu() -> str:
+    """The host CPU as ``/proc/cpuinfo`` gives it (an emulated kernel, such
+    as gVisor's, may report its model name as unknown: its vendor, family
+    and model then still name it)."""
+    with open("/proc/cpuinfo") as f:
+        blocks = [dict(line.split(":", 1) for line in b.splitlines() if ":" in line)
+                  for b in f.read().strip().split("\n\n")]
+    cpu = {k.strip(): v.strip() for k, v in blocks[0].items()}
+    return (f"{cpu.get('model name', 'not measured')} ({cpu.get('vendor_id', '?')} family "
+            f"{cpu.get('cpu family', '?')} model {cpu.get('model', '?')}, {len(blocks)} "
+            f"logical CPUs)")
+
+
+def run_host_native(rec: _HostRecorder, tok, build_s: float, n_random: int = 3000) -> dict:
+    """host_native: the native encode against ``encode_plain`` on every
+    text a path encoded (each with its own tokenizer; r1's and h1's HF
+    tokenizer texts with ``tok``), on ``n_random`` seeded strings over the
+    specials' characters, digits, ASCII and multi-byte UTF-8, and the
+    native edit distance against ``edit_distance_plain`` on r1's WER/CER
+    pairs and seeded word and character sequences; then the host µs of
+    both on an SFT sample and on r1's pairs. Returns the phase's summary."""
+    from tts_max_tpu_torch import native
+    from tts_max_tpu_torch.training.rlhf import reward_utils
+
+    seen = set()
+    checked = collections.Counter()
+    for label, t, text in rec.byte_texts + [(lbl, tok, text) for lbl, text in rec.hf_texts]:
+        if (id(t), text) in seen:
+            continue
+        seen.add((id(t), text))
+        if t.encode(text) != t.encode_plain(text):
+            raise AssertionError(f"host_native: native encode != encode_plain on a text of "
+                                 f"{label}: {text[:200]!r}")
+        checked[label] += 1
+    rng = np.random.default_rng(18)
+    for _ in range(n_random):
+        parts = [HOST_FRAGMENTS[rng.integers(len(HOST_FRAGMENTS))] if rng.random() < 0.4
+                 else "".join(rng.choice(HOST_ALPHABET, rng.integers(0, 7)))
+                 for _ in range(rng.integers(0, 13))]
+        text = "".join(parts)
+        if tok.encode(text) != tok.encode_plain(text):
+            raise AssertionError(f"host_native: native encode != encode_plain on {text!r}")
+    pairs = [(r.split(), h.split()) if how == "wer" else (list(r), list(h))
+             for label, how, r, h in rec.wer_pairs if label.startswith("r1")]
+    words = [f"w{i}" for i in range(30)]
+    seeded = [([str(w) for w in rng.choice(words, rng.integers(0, 300))],
+               [str(w) for w in rng.choice(words, rng.integers(0, 300))]) for _ in range(100)]
+    seeded += [(list(rng.choice(HOST_ALPHABET, rng.integers(0, 300))),
+                list(rng.choice(HOST_ALPHABET, rng.integers(0, 300)))) for _ in range(100)]
+    seeded += [([], []), (["a"], []), ([], ["a"])]
+    for r, h in pairs + seeded:
+        if native.levenshtein(r, h) != reward_utils.edit_distance_plain(r, h):
+            raise AssertionError(f"host_native: levenshtein != edit_distance_plain on "
+                                 f"{r[:20]} / {h[:20]}")
+
+    t_sft, text = next((t, x) for label, t, x in rec.byte_texts if label == "SFT path")
+    timing_pairs = [p for p in pairs if p[0]] or seeded[:8]
+    summary = {
+        "counts": HOST_COUNTS,
+        "parity": {"texts_by_phase": dict(checked), "random_texts": n_random,
+                   "r1_pairs": len(pairs), "seeded_pairs": len(seeded)},
+        "encode_per_sft_sample": {
+            "native_us": _median_us(t_sft.encode, [(text,)]),
+            "plain_us": _median_us(t_sft.encode_plain, [(text,)]),
+            "ids": len(t_sft.encode(text))},
+        "edit_distance_per_r1_wer": {
+            "native_us": _median_us(native.levenshtein, timing_pairs),
+            "plain_us": _median_us(reward_utils.edit_distance_plain, timing_pairs),
+            "pairs": len(timing_pairs), "from_r1": bool(pairs)},
+        "build_s": build_s,
+        "host_cpu": host_cpu(),
+    }
+    log(f"  host_native: parity on {sum(checked.values())} recorded texts "
+        f"{dict(checked)}, {n_random} random texts, {len(pairs)} r1 pairs and "
+        f"{len(seeded)} seeded pairs; " + json.dumps(summary))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a "
               "CUDA card", file=sys.stderr)
         return 1
+    from tts_max_tpu_torch import native
     from tts_max_tpu_torch.core import tokenization
     from tts_max_tpu_torch.device import full_fp32
     from tts_max_tpu_torch.ops import cuda_build
@@ -4256,8 +4482,11 @@ def main() -> int:
     full_fp32()
     t_start = time.perf_counter()
 
+    rec = _HostRecorder()
+
     def phase(name: str) -> None:
         log(f"[{time.perf_counter() - t_start:.1f} s] {name}")
+        rec.label = name
 
     card = gpu_line()
     log(f"gpu: {card}")
@@ -4291,6 +4520,18 @@ def main() -> int:
                                                   and counts["LDGSTS"] > 0):
             raise AssertionError(f"flash_attention_bwd: no HMMA or LDGSTS in its SASS "
                                  f"({counts})")
+
+    # the host library, built here by this machine's g++ (a copy of a build
+    # directory may hold one from elsewhere)
+    native.library_path().unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    native.get_lib()
+    host_build_s = time.perf_counter() - t0
+    cxx = subprocess.run([native.CXX, "--version"], check=True, capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    log(f"host library build ({cxx}, {' '.join(native.CXX_FLAGS)}): {host_build_s:.2f} s, "
+        f"{os.path.relpath(native.library_path())}")
+    rec.install()
 
     tok = tokenization.build_byte_tokenizer()
     sv = tokenization.speech_vocab(tok)
@@ -4365,7 +4606,7 @@ def main() -> int:
     sp3, got = run_sp3(tok, sv, hf_dir, draft_dir, counters)
     add_chain(got)
     phase("r1 GRPO RLHF and r1e through the engine")
-    add_chain(run_rlhf(hf_dir, ds, q1[0], counters))
+    add_chain(run_rlhf(hf_dir, ds, q1[0], counters, rec))
     shutil.rmtree(os.path.dirname(q1[0]))  # the codec checkpoints
     shutil.rmtree(CHAIN_DIR)
     phase("synthesis path")
@@ -4403,6 +4644,9 @@ def main() -> int:
     for name, n in run_hf_sft(os.path.join(SERVING_DIR, "model"), counters).items():
         launches[name] += n
     shutil.rmtree(SERVING_DIR)
+    rec.uninstall()
+    phase("host_native")
+    host = run_host_native(rec, tok, host_build_s)
     phase("done")
     log(f"launch counts summed over the main paths: {launches}")
 
@@ -4429,6 +4673,7 @@ def main() -> int:
         row(activation1d_kernel, "act1d.cu", "tts_max_tpu/ops/pallas_act1d.py:137", g),
         row(quant_matmul, "quant_matmul.cu", "tts_max_tpu/models/quantization.py:256", quant),
     ]
+    print(json.dumps({"host_native": dict(host, card=card)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@ tokens are added via ``add_tokens(sorted(new_tokens))`` (NOTE:
 - ``SpeechVocab``: a precomputed numpy speech_id ↔ token_id map so the hot
   decode path never round-trips through strings.
 - ``ByteTokenizer``: a self-contained byte-level base tokenizer so the whole
-  pipeline runs air-gapped (no HF download). The JAX package's optional C++
-  encoder is not carried over: this is its pure-Python path, which gives the
-  same ids.
+  pipeline runs air-gapped (no HF download). ``encode`` runs the port's C++
+  host library (``tts_max_tpu_torch.native``), built on first use or
+  raising; ``encode_plain`` is the Python loop it is held to in the tests.
 - ``build_tokenizer``: an HF directory's ``tokenizer.json`` (Llama 3's
   byte-level BPE), read by the port's own ``core/hf_tokenizer.py`` where the
   JAX package calls ``transformers.AutoTokenizer``.
@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from tts_max_tpu_torch import native
 from tts_max_tpu_torch.core import constants
 
 _SPECIAL_RE = re.compile(r"<\|[^|<>]+\|>")
@@ -100,6 +101,7 @@ class ByteTokenizer:
         self.pad_token_id = 0
         self.bos_token_id = 1
         self.eos_token_id = 2
+        self._native: native.NativeTokenizer | None = None  # per vocabulary
 
     def __len__(self) -> int:
         return self._base + len(self._added)
@@ -112,7 +114,20 @@ class ByteTokenizer:
                 self._added[t] = tid
                 self._added_rev[tid] = t
                 n += 1
+        if n:
+            self._native = None
         return n
+
+    def _native_tokenizer(self) -> native.NativeTokenizer:
+        """The C++ encoder of the current vocabulary, built again after
+        ``add_tokens`` changed it."""
+        nt = self._native
+        if nt is None:
+            template, table = constants.SPEECH_TOKEN_TEMPLATE, []
+            while template.format(len(table)) in self._added:
+                table.append(self._added[template.format(len(table))])
+            nt = self._native = native.NativeTokenizer(self._added, table)
+        return nt
 
     def convert_tokens_to_ids(self, token: str | list[str]):
         if isinstance(token, list):
@@ -120,6 +135,12 @@ class ByteTokenizer:
         return self._added.get(token, 0)
 
     def encode(self, text: str, add_special_tokens: bool = False) -> list[int]:
+        ids = self._native_tokenizer().encode(text).tolist()
+        return [self.bos_token_id, *ids] if add_special_tokens else ids
+
+    def encode_plain(self, text: str, add_special_tokens: bool = False) -> list[int]:
+        """``encode`` in Python: the plain version the native encode is held
+        to. No main path calls it."""
         ids: list[int] = [self.bos_token_id] if add_special_tokens else []
         pos = 0
         while pos < len(text):
