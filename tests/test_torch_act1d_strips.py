@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu_torch.models.codec.encoder import EncoderConfig, pad_wav_for_encode
 from tts_max_tpu_torch.ops import act1d
 from tts_max_tpu_torch.ops.act1d import act1d_taps, activation1d_fused, snake_beta

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.ops.pallas_attention import _flash_attention_bh
 from tts_max_tpu.ops.pallas_attention import flash_attention as jax_flash
 from tts_max_tpu_torch.ops.attention import (
@@ -30,14 +31,6 @@ from tts_max_tpu_torch.ops.attention import (
 from tts_max_tpu_torch.ops.flash_attention import flash_attention
 
 LOG2E = 1.4426950408889634
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(b, s, hq, hkv, d, seed):

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models.codec import fsq as jfsq
 from tts_max_tpu.models.codec import vocos as jv
 from tts_max_tpu.ops import stft as jstft

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import llama as jllama
 from tts_max_tpu.models import lora as jlora
 from tts_max_tpu.training import checkpointing as jckpt
@@ -36,14 +37,6 @@ from tts_max_tpu_torch.training import checkpointing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R, ALPHA = 4, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_convert():

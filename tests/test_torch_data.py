@@ -9,6 +9,7 @@ import os
 import numpy as np
 import pytest
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import config as jconfig
 from tts_max_tpu.core import prompting as jprompting
 from tts_max_tpu.core import tokenization as jtok

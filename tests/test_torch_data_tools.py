@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.data import codes_io as jcodes
 from tts_max_tpu.data import samples as jsamples
 from tts_max_tpu.models.codec import api as japi
@@ -30,14 +31,6 @@ from tts_max_tpu_torch.models.codec import encoder as tenc
 from tts_max_tpu_torch.tools import data_merger, data_vectorizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

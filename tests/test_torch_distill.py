@@ -23,6 +23,7 @@ import optax
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import llama as jllama
 from tts_max_tpu.training import distill as jdistill
 from tts_max_tpu_torch import convert
@@ -34,14 +35,6 @@ from tts_max_tpu_torch.training import distill
 from tts_max_tpu_torch.training.optim import AdamW, tree_items
 
 VOCAB = 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -47,6 +47,7 @@ import pytest
 import torch
 
 import _torch_dist_worker as worker
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core.config import CodecTrainingConfig as JCodecConfig, MeshConfig
 from tts_max_tpu.models import llama as jllama
 from tts_max_tpu.parallel.mesh import build_mesh

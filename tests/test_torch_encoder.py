@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models.codec import encoder as je
 from tts_max_tpu.models.codec import fsq as jfsq
 from tts_max_tpu_torch import convert

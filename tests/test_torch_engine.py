@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.inference import engine as je
 from tts_max_tpu.models import llama as jl
 from tts_max_tpu.ops import sampling as js

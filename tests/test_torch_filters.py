@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models.codec import filters as jf
 from tts_max_tpu.ops.pallas_act1d import activation1d_pallas
 from tts_max_tpu_torch.models.codec import filters as tf

@@ -24,6 +24,7 @@ import optax
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core.config import CodecTrainingConfig as JCodecConfig
 from tts_max_tpu.data.loader import DataLoader as JLoader
 from tts_max_tpu.models.codec import api as japi, discriminator as jdisc
@@ -42,14 +43,6 @@ from tts_max_tpu_torch.training.codec import codec_data, gan, gan_loop
 
 T_CODES = 8
 LR = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -20,6 +20,7 @@ from safetensors.numpy import save_file as st_save_numpy
 from safetensors.torch import load_file as st_load_torch
 from safetensors.torch import save_file as st_save_torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import hf_import as jhf
 from tts_max_tpu.models import llama as jl
 from tts_max_tpu_torch.models import hf_import as thf

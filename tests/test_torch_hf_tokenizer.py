@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu_torch.core import tokenization as ptok
 from tts_max_tpu_torch.core.hf_tokenizer import HFTokenizer, split_pretokens

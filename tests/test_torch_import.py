@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models.codec import torch_import as ti
 from tts_max_tpu.models.codec import vocos
 

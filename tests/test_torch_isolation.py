@@ -8,7 +8,14 @@ scripts that drive it on the card (``chip_smoke.py``,
 of its gloo tests (``tests/_torch_dist_worker.py``, ``tests/_torch_tp_worker.py``).
 Nor does any of them name a path into the JAX package's C++ runtime (the
 repo-root ``native/`` source or ``tts_max_tpu/native/libttsmax_native.so``):
-the port builds and loads its own (``tts_max_tpu_torch/native``)."""
+the port builds and loads its own (``tts_max_tpu_torch/native``).
+
+The port is complete: every module of the JAX package has a counterpart at
+the same path, or one named in ``RENAMED``, or a reason in ``NOT_PORTED``;
+and every ``pallas_call`` site of the JAX package is named in a
+``replaces`` of ``chip_smoke.py``'s ``kernels`` rows, whose ``source`` is a
+file of ``tts_max_tpu_torch/csrc``. Both are text scans: a new JAX module or
+Pallas site fails them until the port follows."""
 
 import ast
 import pathlib
@@ -30,6 +37,17 @@ _IMPORT = re.compile(rf"^\s*(?:import\s+{_BLOCKED}|from\s+{_BLOCKED}[\s.])", re.
 # the JAX package's library by name
 _NATIVE_PATH = re.compile(r"(?<!tts_max_tpu_torch/)(?<!\w)native(?:/|$)|libttsmax_native\.so")
 _NATIVE_INCLUDE = re.compile(r'^\s*#\s*include\s*[<"][^>"]*native/', re.MULTILINE)
+JAX_PKG = ROOT / "tts_max_tpu"
+# JAX modules whose port lies under another name (relative to each package)
+RENAMED = {
+    "ops/pallas_attention.py": ("ops/flash_attention.py",),
+    "ops/pallas_decode.py": ("ops/flash_decode.py", "ops/ragged_decode.py"),
+    "ops/pallas_act1d.py": ("ops/act1d.py",),
+}
+# JAX modules the port has no counterpart of, and why
+NOT_PORTED = {
+    "utils/platform.py": "JAX_PLATFORMS and the XLA compile cache: XLA only",
+}
 
 
 def _native_paths(source: str) -> list[str]:
@@ -183,3 +201,89 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def _pallas_sites(root: pathlib.Path) -> list[str]:
+    """``path:line`` of every ``pallas_call(...)`` call under ``root``."""
+    sites = []
+    for path in sorted(root.rglob("*.py")):
+        for n in ast.walk(ast.parse(path.read_text())):
+            if isinstance(n, ast.Call) and (
+                    getattr(n.func, "attr", None) == "pallas_call"
+                    or getattr(n.func, "id", None) == "pallas_call"):
+                sites.append(f"{path.relative_to(root.parent).as_posix()}:{n.lineno}")
+    return sites
+
+
+def _kernel_rows(script: pathlib.Path) -> list[tuple[str, str]]:
+    """(source, replaces) of each ``row(fn, source, replaces, numbers)`` in
+    the script's ``kernels`` list; ``row`` puts the source, a file name,
+    under ``tts_max_tpu_torch/csrc/``."""
+    assert 'source=f"tts_max_tpu_torch/csrc/{source}"' in script.read_text()
+    rows = []
+    for n in ast.walk(ast.parse(script.read_text())):
+        if (isinstance(n, ast.Assign) and isinstance(n.value, ast.List)
+                and any(getattr(t, "id", None) == "kernels" for t in n.targets)):
+            for call in n.value.elts:
+                assert isinstance(call, ast.Call) and call.func.id == "row", ast.dump(call)
+                rows.append((call.args[1].value, call.args[2].value))
+    return rows
+
+
+def _unported(jax_root: pathlib.Path, port_root: pathlib.Path) -> list[str]:
+    """The JAX package's modules with no counterpart in the port."""
+    missing = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        if rel in NOT_PORTED:
+            continue
+        if not all((port_root / r).is_file() for r in RENAMED.get(rel, (rel,))):
+            missing.append(rel)
+    return missing
+
+
+def _uncovered(sites: list[str], rows: list[tuple[str, str]]) -> list[str]:
+    """The Pallas sites that no kernel row replaces, and the rows' sources
+    that are not files of the port's ``csrc``."""
+    bad = [site for site in sites
+           if not any(re.search(rf"{re.escape(site)}(?!\d)", rep) for _, rep in rows)]
+    return bad + [src for src, _ in rows if not (PKG / "csrc" / src).is_file()]
+
+
+def test_every_jax_module_has_a_port():
+    assert _unported(JAX_PKG, PKG) == []
+    for rel in NOT_PORTED:  # the exceptions stay true
+        assert (JAX_PKG / rel).is_file() and not (PKG / rel).exists(), rel
+    for rel in RENAMED:
+        assert (JAX_PKG / rel).is_file() and not (PKG / rel).exists(), rel
+
+
+def test_every_pallas_site_has_a_hand_written_kernel():
+    sites = _pallas_sites(JAX_PKG)
+    assert len(sites) >= 7, sites
+    rows = _kernel_rows(ROOT / "chip_smoke.py")
+    assert len(rows) >= len(sites)
+    assert _uncovered(sites, rows) == []
+
+
+def test_coverage_scans_fail_on_a_new_module_or_site(tmp_path):
+    """A JAX module with no counterpart, and a Pallas site or a row source
+    the kernel rows do not cover, are reported."""
+    jax_root, port_root = tmp_path / "tts_max_tpu", tmp_path / "tts_max_tpu_torch"
+    for rel in ("ops/attention.py", "ops/pallas_act1d.py", "ops/new_op.py",
+                "utils/platform.py"):
+        (jax_root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (jax_root / rel).write_text("from jax.experimental import pallas as pl\n\n\n"
+                                    "y = pl.pallas_call(\n    f)(x)\n")
+    for rel in ("ops/attention.py", "ops/act1d.py"):
+        (port_root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (port_root / rel).write_text("")
+    assert _unported(jax_root, port_root) == ["ops/new_op.py"]
+    sites = _pallas_sites(jax_root)
+    assert sites == [f"tts_max_tpu/{r}:4" for r in (
+        "ops/attention.py", "ops/new_op.py", "ops/pallas_act1d.py", "utils/platform.py")]
+    rows = [("act1d.cu", "tts_max_tpu/ops/attention.py:4"),
+            ("act1d.cu", "tts_max_tpu/ops/pallas_act1d.py:41"),
+            ("missing.cu", "tts_max_tpu/utils/platform.py:4")]
+    assert _uncovered(sites, rows) == ["tts_max_tpu/ops/new_op.py:4",
+                                       "tts_max_tpu/ops/pallas_act1d.py:4", "missing.cu"]

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.ops.pallas_attention import flash_attention as jax_flash
 from tts_max_tpu.ops.pallas_decode import flash_decode_attention as jax_decode
 from tts_max_tpu_torch.models.llama import _quantize_kv

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import llama as jllama
 from tts_max_tpu.models import lora as jlora
 from tts_max_tpu.training import train_step as jts
@@ -22,14 +23,6 @@ from tts_max_tpu_torch.ops.attention import grad_tol_ratio
 from tts_max_tpu_torch.training import train_step as ts
 
 R, ALPHA = 4, 8.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

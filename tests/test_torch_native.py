@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 from hypothesis import given, settings, strategies as st
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu import native as jnative
 from tts_max_tpu.core import prompting as jprompting, tokenization as jtokenization
 from tts_max_tpu.training.rlhf import reward_utils as jru

@@ -12,20 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.training.rlhf import dnsmos as jdnsmos
 from tts_max_tpu.utils import onnx_lite as jox
 from tts_max_tpu_torch.training.rlhf import dnsmos
 from tts_max_tpu_torch.utils import onnx_lite as ox
 
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rng(seed):

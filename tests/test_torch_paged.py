@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import llama as jl
 from tts_max_tpu.ops import attention as jatt
 from tts_max_tpu.ops import paged_attention as jpa

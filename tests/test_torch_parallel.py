@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core.config import MeshConfig as JMeshConfig, Strategy as JStrategy
 from tts_max_tpu.models import llama as jllama
 from tts_max_tpu.parallel import mesh as jmesh
@@ -33,14 +34,6 @@ from tts_max_tpu_torch.parallel import collectives, mesh as pmesh
 from tts_max_tpu_torch.data.loader import DataLoader
 from tts_max_tpu_torch.parallel.sharding import ShardLayout, params_specs
 from tts_max_tpu_torch.training.optim import tree_items
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_shape(strategy, n, monkeypatch):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.inference import engine as je
 from tts_max_tpu.models import llama as jl
 from tts_max_tpu.ops import sampling as js
@@ -33,17 +34,6 @@ GREEDY = dict(temperature=0.0, repetition_penalty=1.3, frequency_penalty=0.2)
 SAMPLED = dict(temperature=0.9, top_k=12, repetition_penalty=1.1, frequency_penalty=0.3)
 NUCLEUS = dict(temperature=1.0, top_k=0, top_p=0.8, repetition_penalty=1.0,
                frequency_penalty=0.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: the tiny models' ops are far
-    smaller than a thread pool's overhead, which grows when the suite's
-    parallel workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

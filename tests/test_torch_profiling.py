@@ -10,6 +10,7 @@ import json
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.utils import profiling as jprof
 from tts_max_tpu_torch.utils import profiling
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu.inference import quality as jquality
 from tts_max_tpu.inference import synthesize as jsyn
@@ -46,14 +47,6 @@ from tts_max_tpu_torch.training import main as train_main
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHRASES = ["Hello there, 42 friends!", "A second phrase."]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _chip_smoke():

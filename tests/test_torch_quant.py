@@ -10,9 +10,11 @@ helpers run the plain versions here (CPU tensors): ``dequantize`` and
 ``tied_logits`` agree within ``TOL`` (fp32: 1e-5 + 1e-5 |ref|; bf16: 2^-7
 |ref| + 2^-9 max|ref|, one bf16 ulp for each of the two roundings of the
 JAX formula, ``x @ q`` and ``x scale``, plus the order of the fp32 sums
-under a rounding boundary). A quantized model's forward, prefill and
-decode logits agree within the fp32 tolerance, and greedy ids through
-``generate`` and both engines are identical to JAX's in every mode.
+under a rounding boundary). Greedy ids through ``generate`` are identical
+to JAX's in every mode. The quantized model's logits are
+``test_torch_quant_model.py``'s and both engines
+``test_torch_quant_engines.py``'s, with this module's configs, tolerance
+and ``quantized`` fixture.
 
 Configs: ``tiny_config`` (dim 64) for int8, int4 and int4-g64; dim 128 and
 ffn 256 for int4-g128, whose groups must divide every contraction dim.
@@ -26,13 +28,12 @@ import numpy as np
 import pytest
 import torch
 
-from tts_max_tpu.inference import engine as je
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.inference import generate as jg
 from tts_max_tpu.models import llama as jl
 from tts_max_tpu.models import quantization as jq
 from tts_max_tpu.ops import sampling as js
 from tts_max_tpu_torch import convert
-from tts_max_tpu_torch.inference import engine as te
 from tts_max_tpu_torch.inference import generate as tg
 from tts_max_tpu_torch.models import llama as tl
 from tts_max_tpu_torch.models import quantization as tq
@@ -283,47 +284,7 @@ def test_slice_logits_head_matches_jax(tied, bits):
                 jl.slice_logits_head(jp, jcfg, *bad)
 
 
-# --- through the model ----------------------------------------------------------
-
-
-@pytest.mark.parametrize("tied", [True, False], ids=["tied", "untied"])
-@pytest.mark.parametrize("mode", list(MODES))
-def test_quantized_model_logits_match_jax(mode, tied):
-    """forward, windowed prefill and two decode steps (contiguous and
-    paged) of the quantized model, fp32, within ``TOL``."""
-    jcfg, tcfg = _configs(mode, tied)
-    jp = jq.quantize_llama_params(jl.init_params(jax.random.PRNGKey(8), jcfg),
-                                  **MODES[mode])
-    tp = tq.quantize_llama_params(convert.llama_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jl.init_params(jax.random.PRNGKey(8), jcfg)),
-        tcfg, device="cpu"), **MODES[mode])
-    rng = np.random.default_rng(11)
-    toks = rng.integers(0, VOCAB, (2, 12)).astype(np.int32)
-    _assert_close(tl.forward(tp, tcfg, torch.from_numpy(toks)),
-                  jl.forward(jp, jcfg, jnp.asarray(toks)), "forward")
-    hj, ht = jl.slice_logits_head(jp, jcfg, *WINDOW), tl.slice_logits_head(tp, tcfg, *WINDOW)
-    lens = np.asarray([12, 7], np.int32)
-    cj = jl.init_kv_cache(jcfg, 2, 32)
-    ct = tl.init_kv_cache(tcfg, 2, 32, device="cpu")
-    lj, cj = jl.prefill(jp, jcfg, jnp.asarray(toks), jnp.asarray(lens), cj, hj)
-    lt, ct = tl.prefill(tp, tcfg, torch.from_numpy(toks), torch.from_numpy(lens), ct, ht)
-    _assert_close(lt, lj, "prefill")
-    pool = tl.init_paged_kv_cache(tcfg, 8, 16, device="cpu")
-    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
-    for i, b in enumerate((0, 1)):
-        small = tl.init_kv_cache(tcfg, 1, 32, device="cpu")
-        tl.prefill(tp, tcfg, torch.from_numpy(toks[b:b + 1]), torch.from_numpy(lens[b:b + 1]),
-                   small, ht)
-        tl.scatter_prefill_to_blocks(pool, small, table[i])
-    lt_len = torch.from_numpy(lens.copy())
-    for step in range(2):
-        nt = rng.integers(0, VOCAB, 2).astype(np.int32)
-        dj, cj = jl.decode_step(jp, jcfg, cj, jnp.asarray(nt), jnp.asarray(lens + step), hj)
-        dt, ct = tl.decode_step(tp, tcfg, ct, torch.from_numpy(nt), lt_len + step, ht)
-        dp, pool = tl.decode_step_paged(tp, tcfg, pool, torch.from_numpy(nt), lt_len + step,
-                                        table, use_pallas=False, logits_head=ht)
-        _assert_close(dt, dj, f"decode step {step}")
-        _assert_close(dp, dj, f"paged decode step {step}")
+# --- through generate ---------------------------------------------------------
 
 
 def test_quantized_generate_matches_jax(quantized):
@@ -338,27 +299,3 @@ def test_quantized_generate_matches_jax(quantized):
                        device="cpu", **kw)
     np.testing.assert_array_equal(ours.tokens.numpy(), np.asarray(ref.tokens))
     assert ours.steps == 12
-
-
-@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
-def test_quantized_engines_match_jax(quantized, paged):
-    """Greedy ids through the contiguous and the paged engine (5 requests,
-    2 slots, K = 4, a vocab window), each mode."""
-    mode, jcfg, jp, tcfg, tp = quantized
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(1, VOCAB, n).astype(np.int32) for n in (5, 40, 12, 23, 9)]
-    kw = dict(max_batch=2, max_len=128, steps_per_dispatch=4, vocab_window=WINDOW)
-    if paged:
-        kw["block_size"] = 16
-    jcls, tcls = ((je.PagedInferenceEngine, te.PagedInferenceEngine) if paged
-                  else (je.InferenceEngine, te.InferenceEngine))
-    jeng = jcls(jp, jcfg, sp=js.SamplingParams(**GREEDY), delta_kv=False, **kw)
-    teng = tcls(tp, tcfg, sp=ts.SamplingParams(**GREEDY), device="cpu", **kw)
-
-    def run(eng):
-        ids = [eng.submit(p, max_new_tokens=9, eos_id=-1) for p in prompts]
-        done = {c.request_id: np.asarray(c.tokens).tolist() for c in eng.run()}
-        return [done[i] for i in ids]
-
-    ours, ref = run(teng), run(jeng)
-    assert ours == ref and all(len(t) == 9 for t in ours)

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.models import quantization as tq
 from tts_max_tpu_torch.ops import quant_matmul as qm

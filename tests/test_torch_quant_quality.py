@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tests.fixtures.load_quant_anchor import load_anchor, make_anchor_prompts
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import quantization as jq
 from tts_max_tpu_torch.models import quantization as tq
 from tts_max_tpu_torch.tools import quant_quality
@@ -24,14 +25,6 @@ from tts_max_tpu_torch.training.optim import tree_items, tree_map
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, P, STEPS = 4, 32, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_tool():

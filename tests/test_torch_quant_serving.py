@@ -30,6 +30,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import prompting as jprompting
 from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu.data import normalization as jnorm
@@ -150,13 +151,12 @@ class StubEncoder:
 
 
 class RecordingDecoder:
-    """JAX's AudioDecoder on the port's smoke decoder weights, keeping the
-    codes it was asked to decode."""
+    """JAX's AudioDecoder on the port's smoke decoder weights (the module's
+    one, so each codes length compiles once), keeping the codes it was
+    asked to decode."""
 
     def __init__(self, served):
-        tree = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
-                                      served["decoder"]._params)
-        self._dec = japi.AudioDecoder(tree, jv.tiny_vocos_config(), japi.DecoderConfig())
+        self._dec = served["jdecoder"]
         self.sample_rate, self.token_rate = self._dec.sample_rate, self._dec.token_rate
         self.codes = []
 
@@ -170,8 +170,9 @@ def served(tmp_path_factory):
     """A small fp32 SpeechLM over the byte tokenizer's vocab exported by the
     JAX package (HF dir), a pre-quantized int8 dir of the same weights
     written by JAX's ``save_quantized_dir``, a seeded 0.5 s prompt wav, the
-    port's smoke codec, and the JAX params of each mode as the JAX CLIs
-    make them."""
+    port's smoke codec, the JAX params of each mode as the JAX CLIs make
+    them, JAX's AudioDecoder on the smoke decoder's weights, and a cache of
+    JAX's contiguous engine by mode (``_jax_engine``)."""
     root = tmp_path_factory.mktemp("quant_serving")
     tok = jtok.build_byte_tokenizer()
     sv = jtok.speech_vocab(tok)
@@ -192,8 +193,12 @@ def served(tmp_path_factory):
     fp32 = jax.tree_util.tree_map(jnp.asarray, fp32)
     jparams = {m: jq.quantize_for_serving(fp32, m) for m in ("int8", "int4-g128")}
     jparams["dir"] = jax.tree_util.tree_map(jnp.asarray, jhf.load_serving_model(q_dir)[0])
+    jdecoder = japi.AudioDecoder(
+        jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()), decoder._params),
+        jv.tiny_vocos_config(), japi.DecoderConfig())
     return dict(dirs={"int8": hf_dir, "int4-g128": hf_dir, "dir": q_dir}, wav_path=wav_path,
-                encoder=encoder, decoder=decoder, jparams=jparams, jcfg=jcfg, tok=tok, sv=sv)
+                encoder=encoder, decoder=decoder, jparams=jparams, jcfg=jcfg, tok=tok, sv=sv,
+                jdecoder=jdecoder, jengines={})
 
 
 def _flags(served, mode):
@@ -223,13 +228,17 @@ def _jax_pcm(served, tokens, with_prompt: bool) -> np.ndarray:
 
 def _jax_engine(served, mode, reqs, max_tokens):
     """Greedy ids of JAX's contiguous engine for request dicts (the CLIs'
-    prompt compilation), keyed by request index."""
+    prompt compilation), keyed by request index. One engine a mode serves
+    every call: it is idle between calls, as a server's is between
+    batches."""
     tok, sv = served["tok"], served["sv"]
     normalizer = jnorm.create()
     codes = _prompt_codes(served).tolist()
-    eng = je.InferenceEngine(served["jparams"][mode], served["jcfg"], max_batch=2,
-                             max_len=512, vocab_window=sv.generation_window(),
-                             steps_per_dispatch=4, delta_kv=False)
+    if mode not in served["jengines"]:
+        served["jengines"][mode] = je.InferenceEngine(
+            served["jparams"][mode], served["jcfg"], max_batch=2, max_len=512,
+            vocab_window=sv.generation_window(), steps_per_dispatch=4, delta_kv=False)
+    eng = served["jengines"][mode]
     rids = []
     for r in reqs:
         speech = codes if r.get("prompt_wav") else []

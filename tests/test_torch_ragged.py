@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.ops.pallas_decode import ragged_decode_attention as jax_ragged
 from tts_max_tpu_torch.ops.attention import KERNEL_TOL, decode_attention
 from tts_max_tpu_torch.ops.ragged_decode import ragged_decode_attention

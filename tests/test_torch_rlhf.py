@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu.core.config import RLHFConfig as JRLHFConfig
 from tts_max_tpu.data.samples import Sample as JSample
@@ -49,14 +50,6 @@ from tts_max_tpu_torch.training.rlhf import grpo, reward_utils as ru, rewards
 from tts_max_tpu_torch.training.rlhf.dataset import TtsRLHFDataset
 
 CODEBOOK = 256
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu_torch.data import codes_io
 from tts_max_tpu_torch.data.audio_io import save_wav
 from tts_max_tpu_torch.data.samples import Sample
@@ -35,14 +36,6 @@ from tts_max_tpu_torch.utils import onnx_lite as ox
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WHISPER_TOKENIZER = os.path.join(ROOT, "tests", "fixtures", "whisper_style_tokenizer")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _dataset(path, wav_dir):

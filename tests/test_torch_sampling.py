@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.ops import sampling as js
 from tts_max_tpu_torch.ops import sampling as ts
 

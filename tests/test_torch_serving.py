@@ -25,6 +25,7 @@ import pytest
 import torch
 from scipy.io import wavfile
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import prompting as jprompting
 from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu.data import normalization as jnorm

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.inference import generate as jg
 from tts_max_tpu.inference import speculative as jspec
 from tts_max_tpu.models import llama as jl
@@ -34,17 +35,6 @@ from tts_max_tpu_torch.ops import sampling as ts
 VOCAB = 64
 GREEDY = dict(temperature=0.0, repetition_penalty=1.0, frequency_penalty=0.0)
 PENALTIES = dict(temperature=0.0, top_k=0, repetition_penalty=1.3, frequency_penalty=0.5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module: the tiny models' ops are far
-    smaller than a thread pool's overhead, which grows when the suite's
-    parallel workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.ops import stft as jstft
 from tts_max_tpu_torch.ops import stft
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core import tokenization as jtok
 from tts_max_tpu.inference import synthesize as jsyn
 from tts_max_tpu.models import llama as jl

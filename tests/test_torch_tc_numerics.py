@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu_torch.models.llama import _quantize_kv
 from tts_max_tpu_torch.ops.attention import (
     KERNEL_TOL,
@@ -308,14 +309,6 @@ def test_kernel_c_needs_the_q_split():
 LOG2E = 1.4426950408889634
 
 
-@pytest.fixture
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def emulate_kernel_a_bwd(q, k, v, g, *, kv_len=None, o_residual=True, tile=64):
     """Kernel A''s bf16 arithmetic: dq, dk, dv (bf16) of causal attention for
     the cotangent g; q, g [B, S, Hq, D] and k, v [B, S, Hkv, D] in bf16.
@@ -378,7 +371,7 @@ def _bwd_inputs(b, s, hq, hkv, d, seed, q_scale=1.0):
     (1, 192, 4, 1, 128, None, 1.0),    # D = 128
     (1, 333, 8, 2, 128, 301, 4.0),     # D = 128, sharp, kv_len < S
 ])
-def test_kernel_a_bwd_within_grad_tol(one_torch_thread, b, s, hq, hkv, d, kv_len, q_scale):
+def test_kernel_a_bwd_within_grad_tol(b, s, hq, hkv, d, kv_len, q_scale):
     q, k, v, g = _bwd_inputs(b, s, hq, hkv, d, seed=s + d, q_scale=q_scale)
     ref = causal_attention_bwd(q, k, v, g, kv_len=kv_len)
     got = emulate_kernel_a_bwd(q, k, v, g, kv_len=kv_len)
@@ -389,7 +382,7 @@ def test_kernel_a_bwd_within_grad_tol(one_torch_thread, b, s, hq, hkv, d, kv_len
         assert not got[0][:, kv_len:].any() and not got[1][:, kv_len:].any()
 
 
-def test_kernel_a_bwd_needs_the_unrounded_o(one_torch_thread):
+def test_kernel_a_bwd_needs_the_unrounded_o():
     """A sharp softmax (q x 4) at S = 1024, Hq 8, Hkv 2, D 64: with D from
     kernel A's bf16 output alone, dq lies outside GRAD_TOL (1.63x here; over
     seeds 0-5 of this shape 0.90-1.63x, outside at five of six), as the first

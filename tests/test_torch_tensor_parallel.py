@@ -46,6 +46,7 @@ import optax
 import pytest
 
 import _torch_dist_worker as dist_worker
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from test_torch_distributed import (
     LR,
     _config,

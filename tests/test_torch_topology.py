@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from test_rlhf_topology import _LenReward, _dataset as _jax_rlhf_dataset
 from test_torch_distributed import _flat, _jax_paths, _leaf_close, _spawn, _wait
 from test_torch_rlhf_main import _config as _rlhf_config, _dataset as _rlhf_dataset

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu_torch.core.config import ExperimentConfig
 from tts_max_tpu_torch.data import builder, codes_io
 from tts_max_tpu_torch.data.collate import collate
@@ -29,14 +30,6 @@ from tts_max_tpu_torch.training import optim, train_step as ts
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "llama3_style_tokenizer")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _dataset(path):

@@ -25,20 +25,13 @@ import optax
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import llama as jllama
 from tts_max_tpu.training import optim as joptim
 from tts_max_tpu.training import train_step as jts
 from tts_max_tpu_torch import convert
 from tts_max_tpu_torch.models import llama
 from tts_max_tpu_torch.training import optim, train_step as ts
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _configs(vocab=128, seq=64):

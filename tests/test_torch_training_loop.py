@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.core.config import ExperimentConfig as JExperimentConfig
 from tts_max_tpu.core.config import from_dict as jfrom_dict
 from tts_max_tpu.data.collate import collate as jcollate
@@ -41,14 +42,6 @@ from tts_max_tpu_torch.training.checkpointing import (
     save_final_model,
 )
 from tts_max_tpu_torch.utils.statistics import Statistics
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class SyntheticDataset:

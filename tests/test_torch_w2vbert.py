@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models.codec import w2vbert as jw
 from tts_max_tpu_torch import convert
 from tts_max_tpu_torch.models.codec import w2vbert as tw

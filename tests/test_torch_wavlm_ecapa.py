@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import wavlm as jwavlm
 from tts_max_tpu.training.rlhf import ecapa as jecapa
 from tts_max_tpu_torch import convert
@@ -24,14 +25,6 @@ from tts_max_tpu_torch.models import wavlm
 from tts_max_tpu_torch.training.rlhf import ecapa
 
 TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _hf_config(cfg):

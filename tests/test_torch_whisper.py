@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_fixtures import one_torch_thread  # noqa: F401
 from tts_max_tpu.models import whisper as jwhisper
 from tts_max_tpu.training.rlhf import asr as jasr
 from tts_max_tpu_torch import convert
@@ -29,14 +30,6 @@ from tts_max_tpu_torch.training.rlhf import asr
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
                        "whisper_style_tokenizer")
 TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg():
